@@ -1,0 +1,381 @@
+#!/usr/bin/env python3
+"""Build and drive the PyTorch/CUDA port on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Phases (each prints its seconds; any failed check raises and the script
+exits non-zero with the traceback):
+
+1. build the CUDA kernels from ``lightly_ocr_tpu_torch/csrc`` (one ``nvcc``
+   per source, all started together) and load them with ``ctypes``;
+2. seam-tail kernel vs its plain PyTorch version at the serving shapes
+   (batch 16, 960x640 canvas -> 480x320 maps) on the port's own trunk
+   output, plus the same chain as ``F.conv2d`` calls as a yardstick;
+3. connected-components kernel vs its plain version, labels exactly equal,
+   on the phase-2 foreground masks and on a 480x320 adversarial spiral;
+4. end to end: ``BatchedServeModel.predict_many`` behind an
+   ``InferenceWorker`` answers batches of synthetic 600x400 receipts at the
+   full model width (VGG16-BN CRAFT; TPS + ResNet(512) + BiLSTM(256) +
+   Attention; bf16; 32 boxes per receipt; random weights from a seed); both
+   kernels must have been launched and at least one receipt must get a box.
+
+Then one JSON line with each kernel's numbers, and as the last line
+``{"ok": true, "device": {...}}``.  TF32 is switched OFF for float32 matmuls
+and convolutions (``torch.backends.cuda.matmul.allow_tf32 = False``,
+``torch.backends.cudnn.allow_tf32 = False``), so the plain versions
+accumulate in full float32.  Without a CUDA device the script exits 2 and
+prints no result.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+BATCH, BOXES = 16, 32
+RECEIPT_H, RECEIPT_W = 600, 400
+DISPATCHES = 5
+SEED = 0
+# H100 SXM data-sheet peaks (dense): bf16 tensor cores, HBM3
+PEAK_BF16_FLOPS = 989e12
+PEAK_BYTES = 3.35e12
+# seam tail kernel vs plain: both round at the same bf16 cast points, so
+# most scores are bit-identical and the rest sit behind a bf16 rounding
+# that fell the other way (the bounds of tests/test_torch_seam_tail.py)
+TAIL_TOL = 2e-2  # max |diff|, relative to the plain scores' max |value|
+TAIL_EXACT = 0.9  # least share of scores bit-identical to the plain version
+TAIL_FLIPS = 1e-4  # most fg-mask pixels that flip, as a share of all pixels
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def cuda_ms(fn, iters: int = 5, warmup: int = 1) -> float:
+    """Mean milliseconds per call, CUDA events around ``iters`` calls."""
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def receipts(rng: np.random.Generator, n: int) -> list:
+    """Synthetic receipts: dark text-like blocks on a light ground."""
+    out = []
+    for _ in range(n):
+        g = np.full((RECEIPT_H, RECEIPT_W), 225.0) + rng.normal(0, 4, (RECEIPT_H, RECEIPT_W))
+        y = 30
+        while y < RECEIPT_H - 40:
+            x = int(rng.integers(20, 80))
+            while x < RECEIPT_W - 60:
+                w = min(int(rng.integers(20, 90)), RECEIPT_W - 20 - x)
+                h = int(rng.integers(10, 18))
+                g[y:y + h, x:x + w] = rng.uniform(10, 70, (h, w))
+                x += w + int(rng.integers(10, 30))
+            y += int(rng.integers(24, 40))
+        g = np.clip(g, 0, 255)
+        out.append(np.repeat(g[..., None], 3, -1).astype(np.uint8))
+    return out
+
+
+def tail_library(ya, t, p):
+    """The seam tail as stock PyTorch bf16 calls (timing yardstick only)."""
+    B, H2, W2, _ = t.shape
+    tn = t.permute(0, 3, 1, 2)
+    up = F.interpolate(ya.permute(0, 3, 1, 2), size=(H2, W2), mode="bilinear",
+                       align_corners=False)
+    x = F.relu(up + F.conv2d(tn, p.k1b.t()[:, :, None, None]).float()
+               + p.b1[:, None, None]).to(torch.bfloat16)
+    for wk, bk in ((p.wa, p.ba), (p.w0, p.b0), (p.w2, p.b2), (p.w4, p.b4)):
+        oihw = wk.reshape(3, 3, wk.shape[1], wk.shape[2]).permute(3, 2, 0, 1)
+        x = F.relu(F.conv2d(x, oihw, bk.to(torch.bfloat16), padding=1))
+    x = F.relu(F.conv2d(x, p.w6.t()[:, :, None, None], p.b6.to(torch.bfloat16)))
+    return F.conv2d(x, p.w8.t()[:, :, None, None], p.b8.to(torch.bfloat16))
+
+
+def tail_bound_ms(B: int, H2: int, W2: int) -> tuple[float, str]:
+    px = B * H2 * W2
+    flops = 2 * px * (128 * 64 + 9 * 64 * 32 + 2 * 9 * 32 * 32 + 9 * 32 * 16
+                      + 16 * 16 + 16 * 2)
+    weights = 2 * (128 * 64 + 9 * (64 * 32 + 2 * 32 * 32 + 32 * 16) + 16 * 16 + 32)
+    nbytes = px * 128 * 2 + (px // 4) * 64 * 4 + px * 2 * 4 + weights
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def module_ms(net, names, fn, iters: int = 3) -> dict:
+    """Milliseconds per call of ``fn`` spent inside each named submodule
+    of ``net``, from CUDA events recorded by forward hooks."""
+    spans = {n: [] for n in names}
+    hooks = []
+    for n in names:
+        m = getattr(net, n)
+
+        def pre(mod, args, n=n):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            spans[n].append([ev, None])
+
+        def post(mod, args, res, n=n):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            spans[n][-1][1] = ev
+
+        hooks += [m.register_forward_pre_hook(pre), m.register_forward_hook(post)]
+    try:
+        fn()
+        torch.cuda.synchronize()
+        for n in names:
+            spans[n].clear()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    finally:
+        for h in hooks:
+            h.remove()
+    return {n: sum(a.elapsed_time(b) for a, b in spans[n]) / iters for n in names}
+
+
+def stage_times(ocr, imgs) -> dict:
+    """Milliseconds of each stage of one ``run_images`` dispatch, timed
+    through ``BatchedOCR``'s own methods (CUDA events for device stages,
+    the host clock around synchronised host stages), each run on the
+    previous stage's real output.  ``cc`` and the recognizer's parts are
+    also shown inside ``boxes`` and ``recognize``."""
+    from lightly_ocr_tpu_torch.ops.cc import label_components
+    from lightly_ocr_tpu_torch.ops.seam_tail import fused_tail_scores_cs_seam
+
+    cfg, out = ocr.cfg, {}
+
+    def host_ms(fn, iters=3):
+        fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(iters):
+            r = fn()
+        torch.cuda.synchronize()
+        return r, 1e3 * (time.perf_counter() - t) / iters
+
+    with torch.inference_mode():
+        _, out["run_images_total"] = host_ms(lambda: ocr.run_images(imgs))
+        groups = ocr.group(imgs)
+        assert len(groups) == 1, groups
+        (cb, gb), idxs = next(iter(groups.items()))
+        group = [imgs[i] for i in idxs]
+        (canv, gray, inv, ext), out["host_prep"] = host_ms(lambda: ocr.prepare(group, cb, gb))
+        y_lo, t = ocr.det_net.trunk(canv)
+        out["detector_trunk"] = cuda_ms(lambda: ocr.det_net.trunk(canv), iters=3)
+        out["seam_tail_with_ya"] = cuda_ms(lambda: fused_tail_scores_cs_seam(ocr.tail, y_lo, t), iters=3)
+        tm, lm = ocr.detector_scores(canv)
+        fg = ((tm > cfg.low_text) | (lm > cfg.link_threshold)).contiguous()
+        out["cc"] = cuda_ms(lambda: label_components(fg), iters=3)
+        out["boxes"] = cuda_ms(lambda: ocr.boxes(tm, lm, inv, ext), iters=3)
+        rects, _ = ocr.boxes(tm, lm, inv, ext)
+        out["recognize"] = cuda_ms(lambda: ocr.recognize(gray, rects), iters=3)
+        out["crop"] = cuda_ms(lambda: ocr.crops(gray, rects), iters=3)
+        crops = ocr.crops(gray, rects)
+        out.update(module_ms(ocr.rec_net, ("Transformation", "FeatureExtraction",
+                                           "SequenceModeling", "Prediction"),
+                             lambda: ocr.rec_net(crops)))
+        res = ocr.postprocess(tm, lm, gray, inv, ext)
+        _, out["host_decode"] = host_ms(lambda: ocr.decode(res))
+    return out
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; nothing run",
+              file=sys.stderr)
+        return 2
+    t_all = time.perf_counter()
+    from lightly_ocr_tpu_torch.config import Config
+    from lightly_ocr_tpu_torch.models.crnn import CRNNet
+    from lightly_ocr_tpu_torch.models.layers import init_module
+    from lightly_ocr_tpu_torch.models.vgg_unet import VGG_UNet
+    from lightly_ocr_tpu_torch.ops import cc, native, seam_tail
+    from lightly_ocr_tpu_torch.serving.batch import BatchedOCR
+    from lightly_ocr_tpu_torch.serving.server import BatchedServeModel, InferenceWorker
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    ).stdout.strip()
+    log(smi)
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
+
+    # -- phase 1: build ---------------------------------------------------
+    t0 = time.perf_counter()
+    build_s = native.build(["seam_tail", "cc"])
+    for name, text in native.build_log.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line or "error" in line.lower():
+                print(f"nvcc[{name}] {line.strip()}", file=sys.stderr)
+    native.load("seam_tail", seam_tail._SIG)
+    native.load("cc", cc._SIG)
+    log(f"phase build: {time.perf_counter() - t0:.2f} s (nvcc {build_s:.2f} s)")
+
+    # -- model, seeded weights, receipts -----------------------------------
+    t0 = time.perf_counter()
+    cfg = Config(prediction="Attention", transform="TPS", max_boxes=BOXES,
+                 compute_dtype="bfloat16", quant_int8=False)
+    g = torch.Generator().manual_seed(SEED)
+    det_sd = init_module(VGG_UNet(), g).state_dict()
+    rec_sd = init_module(CRNNet(cfg), g).state_dict()
+    ocr = BatchedOCR(cfg, det_sd, rec_sd, boxes_per_image=BOXES, device=dev)
+    imgs = receipts(np.random.default_rng(SEED), BATCH)
+    (cb, gb), _ = next(iter(ocr.group(imgs).items()))
+    canv = ocr.prepare(imgs, cb, gb)[0]
+    log(f"canvas {tuple(canv.shape)} gray bucket {gb}")
+    log(f"phase setup: {time.perf_counter() - t0:.2f} s")
+
+    # -- phase 2: seam tail kernel vs plain ---------------------------------
+    t0 = time.perf_counter()
+    p = ocr.tail
+    with torch.inference_mode():
+        y_lo, t = ocr.det_net.trunk(canv)
+        t = t.contiguous()
+        ya = torch.matmul(y_lo.float(), p.k1a).contiguous()
+        got = seam_tail.seam_tail(ya, t, p)
+        torch.cuda.synchronize()
+        ref = seam_tail.seam_tail_plain(ya, t, p)
+        torch.cuda.synchronize()
+    B, H2, W2, _ = t.shape
+    assert got.shape == (B, H2, 2, W2) and torch.isfinite(got).all(), "tail output"
+    tail_err = (got - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    region, link = ref[:, :, 0], ref[:, :, 1]
+    q = torch.quantile
+    rs = region.flatten()[:: 97].float()
+    ls = link.flatten()[:: 97].float()
+    low_text = q(rs, 0.80).item()
+    text_thr = q(rs, 0.95).item()
+    link_thr = q(ls, 0.97).item()
+    fg_ref = (region > low_text) | (link > link_thr)
+    fg_got = (got[:, :, 0] > low_text) | (got[:, :, 1] > link_thr)
+    flips = int((fg_ref != fg_got).sum().item())
+    exact = (got == ref).float().mean().item()
+    log(f"seam tail: maxdiff {tail_err:.3e} (max |score| {scale:.3e}, tol {TAIL_TOL} x max); "
+        f"bit-identical {exact:.4f} (min {TAIL_EXACT}); fg flips {flips} of {fg_ref.numel()} "
+        f"(max {TAIL_FLIPS} x) at low_text {low_text:.4g} link {link_thr:.4g}")
+    assert tail_err <= TAIL_TOL * max(scale, 1e-6), "seam tail kernel disagrees with plain version"
+    assert exact >= TAIL_EXACT, "seam tail kernel: too few scores equal the plain version"
+    assert flips <= TAIL_FLIPS * fg_ref.numel(), "seam tail kernel: too many fg-mask flips"
+    with torch.inference_mode():
+        tail_ms = cuda_ms(lambda: seam_tail.seam_tail(ya, t, p), iters=10)
+        tail_plain_ms = cuda_ms(lambda: seam_tail.seam_tail_plain(ya, t, p), iters=3)
+        tail_lib_ms = cuda_ms(lambda: tail_library(ya, t, p), iters=10)
+    tail_bound, tail_by = tail_bound_ms(B, H2, W2)
+    log(f"seam tail ms: kernel {tail_ms:.3f} plain {tail_plain_ms:.3f} "
+        f"library {tail_lib_ms:.3f} bound {tail_bound:.3f} ({tail_by})")
+    log(f"phase seam_tail: {time.perf_counter() - t0:.2f} s")
+
+    # -- phase 3: connected components kernel vs plain ----------------------
+    t0 = time.perf_counter()
+    cases = {"fg": fg_got.contiguous(),
+             "spiral": torch.from_numpy(cc.spiral_mask(H2, W2)).to(dev)[None].contiguous()}
+    cc_err = 0.0
+    for name, fg in cases.items():
+        lab = cc.label_components(fg)
+        torch.cuda.synchronize()
+        ref_lab = cc.label_components_plain(fg)
+        cc_err = max(cc_err, (lab - ref_lab).abs().max().item())
+        assert torch.equal(lab, ref_lab), f"CC kernel labels differ from plain on {name}"
+        assert cc.labels_converged(fg, lab), f"CC labels not a fixed point on {name}"
+        n_comp = int((lab.flatten(1) == torch.arange(H2 * W2, device=dev)).sum().item())
+        log(f"cc {name}: {tuple(fg.shape)} labels equal, {n_comp} components")
+    fg = cases["fg"]
+    cc_ms = cuda_ms(lambda: cc.label_components(fg), iters=10)
+    cc_plain_ms = cuda_ms(lambda: cc.label_components_plain(fg), iters=3)
+    sp = cases["spiral"]
+    cc_spiral_ms = cuda_ms(lambda: cc.label_components(sp), iters=5)
+    cc_bytes = fg.numel() * (1 + 4)
+    cc_bound = 1e3 * cc_bytes / PEAK_BYTES
+    log(f"cc ms: kernel {cc_ms:.3f} plain {cc_plain_ms:.3f} bound {cc_bound:.4f} (bytes); "
+        f"spiral 1x{H2}x{W2} kernel {cc_spiral_ms:.3f}")
+    log(f"phase cc: {time.perf_counter() - t0:.2f} s")
+
+    # -- phase 4: end to end through the server ------------------------------
+    t0 = time.perf_counter()
+    with torch.inference_mode():  # the first dispatch's maps set thresholds
+        tm, lm = ocr.detector_scores(canv)
+        rs, ls = tm.flatten()[:: 97].float(), lm.flatten()[:: 97].float()
+        e2e_cfg = cfg.replace(low_text=q(rs, 0.80).item(), text_threshold=q(rs, 0.95).item(),
+                              link_threshold=q(ls, 0.97).item())
+    del ocr, y_lo, t, ya, got, ref, canv, tm, lm
+    model = BatchedServeModel(e2e_cfg, thresh=-1.0, boxes_per_image=BOXES, device=dev,
+                              det_state=det_sd, rec_state=rec_sd)
+    worker = InferenceWorker(model.predict_many, max_batch=BATCH, max_queue=0)
+    try:
+        warm = [worker.submit(im) for im in imgs]
+        [f.result(timeout=600) for f in warm]
+        seam_tail.seam_tail.launches = 0
+        cc.label_components.launches = 0
+        torch.cuda.synchronize()
+        tw = time.perf_counter()
+        futs = [worker.submit(im) for _ in range(DISPATCHES) for im in imgs]
+        answers = [f.result(timeout=600) for f in futs]
+        wall = time.perf_counter() - tw
+        launches = {"seam_tail": seam_tail.seam_tail.launches,
+                    "cc": cc.label_components.launches}
+    finally:
+        worker.close()
+    assert not worker.thread.is_alive(), "worker thread did not stop"
+    log(f"e2e: {len(answers)} receipts in {wall:.3f} s = {len(answers) / wall:.2f} receipts/s "
+        f"(batch {BATCH}, {DISPATCHES} dispatches) on {smi}; launches {launches}")
+    assert launches["seam_tail"] > 0 and launches["cc"] > 0, f"kernels not on the path: {launches}"
+    n_boxes = [len(a) for a in answers]
+    log(f"e2e boxes per receipt: min {min(n_boxes)} max {max(n_boxes)}; sample {answers[0][:4]}")
+    assert max(n_boxes) > 0, "no receipt got a box"
+    out = model.ocr.run_images(imgs[:2])
+    for items in out:
+        for it in items:
+            r0, c0, r1, c1 = it["rect"]
+            assert 0 <= r0 < r1 <= RECEIPT_H and 0 <= c0 < c1 <= RECEIPT_W, it
+            assert 0.0 <= it["confidence"] <= 1.0 and np.isfinite(it["confidence"]), it
+    log(f"phase e2e: {time.perf_counter() - t0:.2f} s")
+
+    # -- where one dispatch's time goes -------------------------------------
+    t0 = time.perf_counter()
+    stages = stage_times(model.ocr, imgs)
+    log("stages ms (one b16 dispatch): " + json.dumps({k: round(v, 3) for k, v in stages.items()}))
+    log(f"phase stages: {time.perf_counter() - t0:.2f} s")
+
+    kernels = [
+        {"name": "seam_tail", "route": "cuda",
+         "source": "lightly_ocr_tpu_torch/csrc/seam_tail.cu",
+         "replaces": "lightly_ocr_tpu/ops/pallas_tail.py:258",
+         "launches": launches["seam_tail"], "max_abs_err": tail_err,
+         "ms": tail_ms, "plain_ms": tail_plain_ms, "bound_ms": tail_bound,
+         "bound_by": tail_by, "library_ms": tail_lib_ms},
+        {"name": "connected_components", "route": "cuda",
+         "source": "lightly_ocr_tpu_torch/csrc/cc.cu",
+         "replaces": "lightly_ocr_tpu/ops/pallas_cc.py:28",
+         "launches": launches["cc"], "max_abs_err": cc_err,
+         "ms": cc_ms, "plain_ms": cc_plain_ms, "bound_ms": cc_bound,
+         "bound_by": "bytes", "library_ms": None},
+    ]
+    log(f"total wall: {time.perf_counter() - t_all:.2f} s")
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,192 @@
+"""CRAFT text detector: VGG16-BN encoder + U-Net decoder (PyTorch).
+
+Port of ``lightly_ocr_tpu/models/vgg_unet.py`` (reference ``ocr/model.py:
+9-61`` + ``ocr/modules/vgg_bn.py``).  Modules compute in NCHW; the public
+methods take and return NHWC like the JAX package.
+
+* The encoder is torchvision's VGG16-BN ``features`` sliced at indices
+  12/19/29/39; slice5 is maxpool(3, s1, p1) + dilated 3x3 conv (rate 6,
+  512->1024) + 1x1 conv.
+* The decoder concatenates, upsamples (bilinear, half-pixel centres) and
+  runs four :class:`UpConv` blocks and the 5-conv ``conv_cls`` head.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from lightly_ocr_tpu_torch.models.layers import BatchNorm2d, max_pool
+
+# Effective dataflow of the reference slices ("C", idx, cin, cout | "P" pool
+# | "R" relu).  The reference's slices end on a BatchNorm and the next slice
+# starts with an IN-PLACE ReLU, which mutates the saved slice output: slices
+# 1-3 are therefore read post-ReLU by the decoder, slice4 pre-ReLU (slice5
+# starts with a pool).  Hence the trailing R on slices 1-3 and none on 4.
+_VGG_SLICES = {
+    "slice1": [("C", 0, 3, 64), ("R",), ("C", 3, 64, 64), ("R",), ("P",),
+               ("C", 7, 64, 128), ("R",), ("C", 10, 128, 128), ("R",)],
+    "slice2": [("P",), ("C", 14, 128, 256), ("R",), ("C", 17, 256, 256),
+               ("R",)],
+    "slice3": [("C", 20, 256, 256), ("R",), ("P",), ("C", 24, 256, 512),
+               ("R",), ("C", 27, 512, 512), ("R",)],
+    "slice4": [("C", 30, 512, 512), ("R",), ("P",), ("C", 34, 512, 512),
+               ("R",), ("C", 37, 512, 512)],
+}
+
+
+class _VggSlice(nn.ModuleDict):
+    def __init__(self, ops):
+        layers = {}
+        for op in ops:
+            if op[0] == "C":
+                _, idx, cin, cout = op
+                layers[str(idx)] = nn.Conv2d(cin, cout, 3, padding=1)
+                layers[str(idx + 1)] = BatchNorm2d(cout)
+        super().__init__(layers)
+        self.ops = ops
+
+    def forward(self, x):
+        for op in self.ops:
+            if op[0] == "R":
+                x = F.relu(x)
+            elif op[0] == "P":
+                x = max_pool(x, 2, 2)
+            else:
+                idx = op[1]
+                x = self[str(idx + 1)](self[str(idx)](x))
+        return x
+
+
+class _Slice5(nn.ModuleDict):
+    """fc6/fc7: children named 1/2 as in the torch Sequential (0 = pool)."""
+
+    def __init__(self):
+        super().__init__({
+            "1": nn.Conv2d(512, 1024, 3, padding=6, dilation=6),
+            "2": nn.Conv2d(1024, 1024, 1),
+        })
+
+    def forward(self, x):
+        x = max_pool(x, 3, 1, 1)
+        return self["2"](self["1"](x))
+
+
+class VggBackbone(nn.Module):
+    def __init__(self):
+        super().__init__()
+        for name, ops in _VGG_SLICES.items():
+            setattr(self, name, _VggSlice(ops))
+        self.slice5 = _Slice5()
+
+    def forward(self, x):
+        outs = {}
+        for name in _VGG_SLICES:
+            x = getattr(self, name)(x)
+            outs[name] = x
+        outs["fc7"] = self.slice5(x)
+        return outs
+
+
+def _upsample_to(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """Bilinear resize, half-pixel centres (``jax.image.resize`` bilinear)."""
+    return F.interpolate(
+        x, size=(h, w), mode="bilinear", align_corners=False, antialias=False
+    )
+
+
+class UpConv(nn.Module):
+    """1x1 conv-BN-ReLU then 3x3 conv-BN-ReLU (``vgg_bn.py:23-31``)."""
+
+    def __init__(self, cin: int, mid: int, out: int):
+        super().__init__()
+        self.conv = nn.ModuleDict({
+            "0": nn.Conv2d(cin, mid, 1),
+            "1": BatchNorm2d(mid),
+            "3": nn.Conv2d(mid, out, 3, padding=1),
+            "4": BatchNorm2d(out),
+        })
+
+    def _rest(self, x):
+        x = F.relu(self.conv["1"](x))
+        return F.relu(self.conv["4"](self.conv["3"](x)))
+
+    def forward(self, x):
+        return self._rest(self.conv["0"](x))
+
+    def forward_seam(self, y, t):
+        """Same block on the PRE-concat pair ``(y, t)``:
+        ``conv1x1(cat([up(y), t])) == up(conv1x1_a(y)) + conv1x1_b(t)``
+        (both linear), so the concat never exists and the y-half runs at
+        y's lower resolution.  The halves are summed in float32 and cast
+        once, as the JAX package's ``_Split1x1`` does."""
+        c0 = self.conv["0"]
+        cy = y.shape[1]
+        a = F.conv2d(y, c0.weight[:, :cy]).float()
+        b = F.conv2d(t, c0.weight[:, cy:]).float()
+        if a.shape[-2:] != b.shape[-2:]:
+            a = _upsample_to(a, t.shape[2], t.shape[3])
+        x = (a + b + c0.bias.float()[:, None, None]).to(t.dtype)
+        return self._rest(x)
+
+
+class _Head(nn.ModuleDict):
+    def __init__(self):
+        super().__init__({
+            "0": nn.Conv2d(32, 32, 3, padding=1),
+            "2": nn.Conv2d(32, 32, 3, padding=1),
+            "4": nn.Conv2d(32, 16, 3, padding=1),
+            "6": nn.Conv2d(16, 16, 1),
+            "8": nn.Conv2d(16, 2, 1),
+        })
+
+    def forward(self, x):
+        for k in ("0", "2", "4", "6"):
+            x = F.relu(self[k](x))
+        return self["8"](x)
+
+
+class VGG_UNet(nn.Module):
+    """CRAFT detector graph (``ocr/model.py:9-61``)."""
+
+    def __init__(self):
+        super().__init__()
+        self.basenet = VggBackbone()
+        self.upconv1 = UpConv(1024 + 512, 512, 256)
+        self.upconv2 = UpConv(256 + 512, 256, 128)
+        self.upconv3 = UpConv(128 + 256, 128, 64)
+        self.upconv4 = UpConv(64 + 128, 64, 32)
+        self.conv_cls = _Head()
+
+    @staticmethod
+    def _nchw(x):
+        return x.permute(0, 3, 1, 2)
+
+    @staticmethod
+    def _nhwc(x):
+        return x.permute(0, 2, 3, 1).contiguous()
+
+    def forward(self, x: torch.Tensor):
+        """[B, H, W, 3] canvas -> ([B, H/2, W/2, 2] scores, [B, H/2, W/2, 32]
+        feature), NHWC, the plain (un-fused) detector."""
+        p = next(self.parameters())
+        s = self.basenet(self._nchw(x).to(p.dtype))
+        y = self.upconv1(torch.cat([s["fc7"], s["slice4"]], 1))
+        for up, skip in ((self.upconv2, "slice3"), (self.upconv3, "slice2"),
+                         (self.upconv4, "slice1")):
+            t = s[skip]
+            y = _upsample_to(y, t.shape[2], t.shape[3])
+            y = up(torch.cat([y, t], 1))
+        return self._nhwc(self.conv_cls(y)), self._nhwc(y)
+
+    def trunk(self, x: torch.Tensor):
+        """[B, H, W, 3] canvas -> the seam pair ``(upconv3 out [B, H/4, W/4,
+        64], slice1 [B, H/2, W/2, 128])`` NHWC, the input of
+        :func:`lightly_ocr_tpu_torch.ops.seam_tail.seam_tail` (the JAX
+        package's ``VGG_UNetTrunk(seam=True)``)."""
+        p = next(self.parameters())
+        s = self.basenet(self._nchw(x).to(p.dtype))
+        y = self.upconv1.forward_seam(s["fc7"], s["slice4"])
+        y = self.upconv2.forward_seam(y, s["slice3"])
+        y = self.upconv3.forward_seam(y, s["slice2"])
+        return self._nhwc(y), self._nhwc(s["slice1"])
