@@ -13,11 +13,23 @@ exits non-zero with the traceback):
    output, plus the same chain as ``F.conv2d`` calls as a yardstick;
 3. connected-components kernel vs its plain version, labels exactly equal,
    on the phase-2 foreground masks and on a 480x320 adversarial spiral;
-4. end to end: ``BatchedServeModel.predict_many`` behind an
+4. the fused conv1_2 + pool front (``csrc/stem.cu``): kernels #5
+   (conv1_2 + pool), #6 (+ conv2_1) and #7 (w8a8 #6), each vs its plain
+   version on the served model's own conv1_1 activation of the receipts
+   (batch 16, 960x640), #7 also vs the float #6 chain; each timed beside
+   its bound, its plain version and the cuDNN bf16 chain;
+5. one dispatch of each other serving plan (bf16 ``tail,cpool``, bf16
+   ``tail,cpool2``, int8 ``tail,s2d``) on the same receipts, each checked
+   for its kernel (or, for int8 ``s2d``, for its int8 convs) and compared
+   with the bf16 default plan (printed, not gated);
+6. end to end: ``BatchedServeModel.predict_many`` behind an
    ``InferenceWorker`` answers batches of synthetic 600x400 receipts at the
    full model width (VGG16-BN CRAFT; TPS + ResNet(512) + BiLSTM(256) +
-   Attention; bf16; 32 boxes per receipt; random weights from a seed); both
-   kernels must have been launched and at least one receipt must get a box.
+   Attention; 32 boxes per receipt; random weights from a seed), first in
+   bf16 with the default plan (seam tail and CC must launch), then in the
+   int8 ``tail,cpool2`` plan (kernel #7, seam tail and CC must launch); at
+   least one receipt must get a box in each;
+7. a per-stage breakdown of one dispatch of each of the two served plans.
 
 Then one JSON line with each kernel's numbers, and as the last line
 ``{"ok": true, "device": {...}}``.  TF32 is switched OFF for float32 matmuls
@@ -39,10 +51,12 @@ import torch.nn.functional as F
 
 BATCH, BOXES = 16, 32
 RECEIPT_H, RECEIPT_W = 600, 400
-DISPATCHES = 5
+DISPATCHES = 5  # timed dispatches of the int8 cpool2 plan
+BF16_DISPATCHES = 3  # timed dispatches of the bf16 default plan
 SEED = 0
-# H100 SXM data-sheet peaks (dense): bf16 tensor cores, HBM3
+# H100 SXM data-sheet peaks (dense): bf16 and int8 tensor cores, HBM3
 PEAK_BF16_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12
 PEAK_BYTES = 3.35e12
 # seam tail kernel vs plain: both round at the same bf16 cast points, so
 # most scores are bit-identical and the rest sit behind a bf16 rounding
@@ -50,6 +64,13 @@ PEAK_BYTES = 3.35e12
 TAIL_TOL = 2e-2  # max |diff|, relative to the plain scores' max |value|
 TAIL_EXACT = 0.9  # least share of scores bit-identical to the plain version
 TAIL_FLIPS = 1e-4  # most fg-mask pixels that flip, as a share of all pixels
+# conv1_2 + pool kernels vs plain (tests/test_torch_kernels_cuda.py's bounds):
+# #5/#6 sum the same bf16 operands in another order; #7's int8 sums are
+# exact and it rounds as its plain version does
+STEM_TOL = 1e-2  # max |diff|, relative to the plain output's max |value|
+STEM_EXACT = {"conv12_pool": 0.9, "conv12_pool_conv21": 0.9, "conv12_pool_conv21_q": 0.99}
+# #7 vs the float #6 chain: the JAX package's gate (tests/test_pallas_stem.py)
+Q_CORR, Q_REL = 0.999, 0.05
 
 
 def log(msg: str) -> None:
@@ -115,6 +136,184 @@ def tail_bound_ms(B: int, H2: int, W2: int) -> tuple[float, str]:
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def stem_library(x0, w1, b1, w2=None, b2=None):
+    """conv1_2 + pool (+ conv2_1) as stock PyTorch bf16 calls with the folded
+    weights: ``conv2d``, ReLU, ``max_pool2d`` (timing yardstick only)."""
+    y = F.max_pool2d(F.relu(F.conv2d(x0.permute(0, 3, 1, 2), w1, b1, padding=1)), 2)
+    if w2 is not None:
+        y = F.relu(F.conv2d(y, w2, b2, padding=1))
+    return y
+
+
+def stem_bound_ms(B: int, H: int, W: int, conv21: bool, int8: bool) -> tuple[float, str]:
+    """Least time for kernel #5 (``conv21`` False) or #6/#7: the 3x3 64->64
+    conv at full resolution (+ the 3x3 64->128 conv at half) over the bf16
+    or int8 peak; bytes = x0 (bf16) read once, the weights, the bf16 output
+    written once."""
+    px = B * H * W
+    flops = 2 * px * 576 * 64 + (2 * (px // 4) * 576 * 128 if conv21 else 0)
+    wbytes = (1 if int8 else 2) * 576 * (64 + (128 if conv21 else 0))
+    nbytes = px * 64 * 2 + (px // 4) * (128 if conv21 else 64) * 2 + wbytes
+    t_ops = flops / (PEAK_INT8_OPS if int8 else PEAK_BF16_FLOPS)
+    t_bytes = nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def stem_phase(ocr, canv) -> dict:
+    """Kernels #5-#7 vs their plain versions on the served model's conv1_1
+    activation of ``canv``; returns {name: partial kernels-line entry}."""
+    from lightly_ocr_tpu_torch.ops import stem
+
+    p = ocr.stem
+    with torch.inference_mode():
+        x0 = ocr.det_net.stem_prefix(canv).contiguous()
+    B, H, W, _ = x0.shape
+    assert stem.conv_pool_supported(H, W), (H, W)
+    w1 = stem._oihw(p.w1).to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    w2 = stem._oihw(p.w2).to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    b1, b2 = p.b1.to(torch.bfloat16), p.b2.to(torch.bfloat16)
+    lib = {"conv12_pool": lambda: stem_library(x0, w1, b1),
+           "conv12_pool_conv21": lambda: stem_library(x0, w1, b1, w2, b2)}
+    lib["conv12_pool_conv21_q"] = lib["conv12_pool_conv21"]
+    out = {}
+    for name, line_no in (("conv12_pool", 255), ("conv12_pool_conv21", 430),
+                          ("conv12_pool_conv21_q", 597)):
+        fn = getattr(stem, "fused_" + name)
+        plain = getattr(stem, name + "_plain")
+        with torch.inference_mode():
+            got = fn(x0, p)
+            torch.cuda.synchronize()
+            ref = plain(x0, p)
+            torch.cuda.synchronize()
+        assert got.shape == ref.shape and torch.isfinite(got.float()).all(), name
+        gf, rf = got.float(), ref.float()
+        err = (gf - rf).abs().max().item()
+        scale = rf.abs().max().item()
+        exact = (gf == rf).float().mean().item()
+        log(f"{name}: {tuple(got.shape)} maxdiff {err:.3e} (max |out| {scale:.3e}, tol {STEM_TOL} x max); "
+            f"bit-identical {exact:.5f} (min {STEM_EXACT[name]})")
+        assert err <= STEM_TOL * max(scale, 1e-6), f"{name} kernel disagrees with its plain version"
+        assert exact >= STEM_EXACT[name], f"{name} kernel: too few outputs equal the plain version"
+        if name.endswith("_q"):
+            with torch.inference_mode():
+                fl = stem.conv12_pool_conv21_plain(x0, p).float()
+            corr = torch.corrcoef(torch.stack([fl.flatten().double(), gf.flatten().double()]))[0, 1].item()
+            rel = (fl - gf).abs().max().item() / max(fl.abs().max().item(), 1e-9)
+            log(f"{name} vs float #6 chain: corr {corr:.6f} (min {Q_CORR}), rel maxdiff {rel:.4f} (max {Q_REL})")
+            assert corr > Q_CORR and rel < Q_REL, "int8 kernel too far from the float chain"
+        del got, ref, gf, rf
+        with torch.inference_mode():
+            ms = cuda_ms(lambda: fn(x0, p), iters=10)
+            plain_ms = cuda_ms(lambda: plain(x0, p), iters=3)
+            lib_ms = cuda_ms(lib[name], iters=10)
+        bound, by = stem_bound_ms(B, H, W, name != "conv12_pool", name.endswith("_q"))
+        log(f"{name} ms: kernel {ms:.3f} plain {plain_ms:.3f} library {lib_ms:.3f} "
+            f"(cuDNN bf16 chain{', the bf16 yardstick of the int8 kernel' if name.endswith('_q') else ''}) "
+            f"bound {bound:.3f} ({by})")
+        out[name] = {"name": name, "route": "cuda",
+                     "source": "lightly_ocr_tpu_torch/csrc/stem.cu",
+                     "replaces": f"lightly_ocr_tpu/ops/pallas_stem.py:{line_no}",
+                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                     "bound_by": by, "library_ms": lib_ms}
+    return out
+
+
+def launch_counts() -> dict:
+    from lightly_ocr_tpu_torch.ops import cc, seam_tail, stem
+
+    return {"seam_tail": seam_tail.seam_tail.launches, "cc": cc.label_components.launches,
+            "conv12_pool": stem.fused_conv12_pool.launches,
+            "conv12_pool_conv21": stem.fused_conv12_pool_conv21.launches,
+            "conv12_pool_conv21_q": stem.fused_conv12_pool_conv21_q.launches}
+
+
+def reset_launch_counts() -> None:
+    from lightly_ocr_tpu_torch.ops import cc, seam_tail, stem
+
+    seam_tail.seam_tail.launches = 0
+    cc.label_components.launches = 0
+    for fn in (stem.fused_conv12_pool, stem.fused_conv12_pool_conv21,
+               stem.fused_conv12_pool_conv21_q):
+        fn.launches = 0
+
+
+def serve(cfg, det_sd, rec_sd, imgs, dispatches: int, label: str):
+    """Receipts through ``InferenceWorker`` + ``BatchedServeModel``: one warm
+    round, then ``dispatches`` timed batches.  Returns (model, launch
+    counts of the timed run, receipts/s, answers)."""
+    from lightly_ocr_tpu_torch.serving.server import BatchedServeModel, InferenceWorker
+
+    model = BatchedServeModel(cfg, thresh=-1.0, boxes_per_image=BOXES, device="cuda",
+                              det_state=det_sd, rec_state=rec_sd)
+    worker = InferenceWorker(model.predict_many, max_batch=BATCH, max_queue=0)
+    try:
+        [f.result(timeout=600) for f in [worker.submit(im) for im in imgs]]
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        tw = time.perf_counter()
+        futs = [worker.submit(im) for _ in range(dispatches) for im in imgs]
+        answers = [f.result(timeout=600) for f in futs]
+        wall = time.perf_counter() - tw
+        launches = launch_counts()
+    finally:
+        worker.close()
+    assert not worker.thread.is_alive(), "worker thread did not stop"
+    rps = len(answers) / wall
+    log(f"e2e {label}: {len(answers)} receipts in {wall:.3f} s = {rps:.2f} receipts/s "
+        f"(batch {BATCH}, {dispatches} dispatches); launches {launches}")
+    n_boxes = [len(a) for a in answers]
+    log(f"e2e {label} boxes per receipt: min {min(n_boxes)} max {max(n_boxes)}; sample {answers[0][:4]}")
+    assert max(n_boxes) > 0, f"{label}: no receipt got a box"
+    out = model.ocr.run_images(imgs[:2])
+    for items in out:
+        for it in items:
+            r0, c0, r1, c1 = it["rect"]
+            assert 0 <= r0 < r1 <= RECEIPT_H and 0 <= c0 < c1 <= RECEIPT_W, it
+            assert 0.0 <= it["confidence"] <= 1.0 and np.isfinite(it["confidence"]), it
+    return model, launches, rps, answers
+
+
+def plan_dispatches(cfg, det_sd, rec_sd, args) -> dict:
+    """One dispatch of each other serving plan on the prepared batch
+    ``args``, against the bf16 default plan; returns {plan: launches}."""
+    from lightly_ocr_tpu_torch.models.layers import QuantConv
+    from lightly_ocr_tpu_torch.serving.batch import BatchedOCR
+
+    def run(c):
+        ocr = BatchedOCR(c, det_sd, rec_sd, boxes_per_image=BOXES, device="cuda")
+        int8 = [0]
+        hooks = [m.register_forward_hook(lambda *a: int8.__setitem__(0, int8[0] + 1))
+                 for m in ocr.det_net.modules() if isinstance(m, QuantConv) and m.quantized]
+        with torch.inference_mode():
+            ocr(*args)  # warm
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            int8[0] = 0
+            tm, lm = ocr.detector_scores(args[0])
+            res = ocr.postprocess(tm, lm, *args[1:])
+            torch.cuda.synchronize()
+        for h in hooks:
+            h.remove()
+        return torch.stack([tm, lm]), res, {**launch_counts(), "int8_convs": int8[0]}
+
+    ref_s, ref, _ = run(cfg)
+    plans = {"bf16 tail,cpool": (cfg.replace(fused_stages="tail,cpool"), "conv12_pool"),
+             "bf16 tail,cpool2": (cfg.replace(fused_stages="tail,cpool2"), "conv12_pool_conv21"),
+             "int8 tail,s2d": (cfg.replace(quant_int8=True), "int8_convs")}
+    out = {}
+    for label, (c, needs) in plans.items():
+        sc, res, launches = run(c)
+        rel = ((sc - ref_s).abs().max() / ref_s.abs().max()).item()
+        va, vb = ref["valid"], res["valid"]
+        same = va & vb & ((ref["rects"] - res["rects"]).abs().amax(-1) <= 1.0)
+        share = same.sum().item() / max(1, (va | vb).sum().item())
+        log(f"plan {label}: launches {launches}; vs bf16 tail,s2d: score maxdiff {rel:.4f} of max |score|, "
+            f"matching boxes {share:.4f} ({int(va.sum())} vs {int(vb.sum())} valid)")
+        assert launches[needs] > 0, f"plan {label}: {needs} did not run"
+        out[label] = launches
+    return out
+
+
 def module_ms(net, names, fn, iters: int = 3) -> dict:
     """Milliseconds per call of ``fn`` spent inside each named submodule
     of ``net``, from CUDA events recorded by forward hooks."""
@@ -175,8 +374,18 @@ def stage_times(ocr, imgs) -> dict:
         (cb, gb), idxs = next(iter(groups.items()))
         group = [imgs[i] for i in idxs]
         (canv, gray, inv, ext), out["host_prep"] = host_ms(lambda: ocr.prepare(group, cb, gb))
-        y_lo, t = ocr.det_net.trunk(canv)
-        out["detector_trunk"] = cuda_ms(lambda: ocr.det_net.trunk(canv), iters=3)
+        if ocr.front is not None:  # conv1_1 prefix, fused kernel, resumed trunk
+            out["stem_prefix"] = cuda_ms(lambda: ocr.det_net.stem_prefix(canv), iters=3)
+            x0 = ocr.det_net.stem_prefix(canv)
+            out["stem_kernel"] = cuda_ms(lambda: ocr.front(x0, ocr.stem), iters=3)
+            p1 = ocr.front(x0, ocr.stem)
+            del x0
+            y_lo, t = ocr.det_net.trunk(p1, resume=ocr.resume)
+            out["detector_trunk"] = cuda_ms(lambda: ocr.det_net.trunk(p1, resume=ocr.resume), iters=3)
+            del p1
+        else:
+            y_lo, t = ocr.det_net.trunk(canv)
+            out["detector_trunk"] = cuda_ms(lambda: ocr.det_net.trunk(canv), iters=3)
         out["seam_tail_with_ya"] = cuda_ms(lambda: fused_tail_scores_cs_seam(ocr.tail, y_lo, t), iters=3)
         tm, lm = ocr.detector_scores(canv)
         fg = ((tm > cfg.low_text) | (lm > cfg.link_threshold)).contiguous()
@@ -204,9 +413,8 @@ def main() -> int:
     from lightly_ocr_tpu_torch.models.crnn import CRNNet
     from lightly_ocr_tpu_torch.models.layers import init_module
     from lightly_ocr_tpu_torch.models.vgg_unet import VGG_UNet
-    from lightly_ocr_tpu_torch.ops import cc, native, seam_tail
+    from lightly_ocr_tpu_torch.ops import cc, native, seam_tail, stem
     from lightly_ocr_tpu_torch.serving.batch import BatchedOCR
-    from lightly_ocr_tpu_torch.serving.server import BatchedServeModel, InferenceWorker
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -220,13 +428,14 @@ def main() -> int:
 
     # -- phase 1: build ---------------------------------------------------
     t0 = time.perf_counter()
-    build_s = native.build(["seam_tail", "cc"])
+    build_s = native.build(["seam_tail", "cc", "stem"])
     for name, text in native.build_log.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "error" in line.lower():
                 print(f"nvcc[{name}] {line.strip()}", file=sys.stderr)
     native.load("seam_tail", seam_tail._SIG)
     native.load("cc", cc._SIG)
+    native.load("stem", stem._SIG)
     log(f"phase build: {time.perf_counter() - t0:.2f} s (nvcc {build_s:.2f} s)")
 
     # -- model, seeded weights, receipts -----------------------------------
@@ -309,66 +518,75 @@ def main() -> int:
         f"spiral 1x{H2}x{W2} kernel {cc_spiral_ms:.3f}")
     log(f"phase cc: {time.perf_counter() - t0:.2f} s")
 
-    # -- phase 4: end to end through the server ------------------------------
+    # -- phase 4: conv1_2 + pool kernels vs plain ----------------------------
+    t0 = time.perf_counter()
+    stem_lines = stem_phase(ocr, canv)
+    log(f"phase stem: {time.perf_counter() - t0:.2f} s")
+
+    # -- phase 5: one dispatch of each other plan ----------------------------
     t0 = time.perf_counter()
     with torch.inference_mode():  # the first dispatch's maps set thresholds
         tm, lm = ocr.detector_scores(canv)
         rs, ls = tm.flatten()[:: 97].float(), lm.flatten()[:: 97].float()
         e2e_cfg = cfg.replace(low_text=q(rs, 0.80).item(), text_threshold=q(rs, 0.95).item(),
                               link_threshold=q(ls, 0.97).item())
+        args = ocr.prepare(imgs, cb, gb)
     del ocr, y_lo, t, ya, got, ref, canv, tm, lm
-    model = BatchedServeModel(e2e_cfg, thresh=-1.0, boxes_per_image=BOXES, device=dev,
-                              det_state=det_sd, rec_state=rec_sd)
-    worker = InferenceWorker(model.predict_many, max_batch=BATCH, max_queue=0)
-    try:
-        warm = [worker.submit(im) for im in imgs]
-        [f.result(timeout=600) for f in warm]
-        seam_tail.seam_tail.launches = 0
-        cc.label_components.launches = 0
-        torch.cuda.synchronize()
-        tw = time.perf_counter()
-        futs = [worker.submit(im) for _ in range(DISPATCHES) for im in imgs]
-        answers = [f.result(timeout=600) for f in futs]
-        wall = time.perf_counter() - tw
-        launches = {"seam_tail": seam_tail.seam_tail.launches,
-                    "cc": cc.label_components.launches}
-    finally:
-        worker.close()
-    assert not worker.thread.is_alive(), "worker thread did not stop"
-    log(f"e2e: {len(answers)} receipts in {wall:.3f} s = {len(answers) / wall:.2f} receipts/s "
-        f"(batch {BATCH}, {DISPATCHES} dispatches) on {smi}; launches {launches}")
-    assert launches["seam_tail"] > 0 and launches["cc"] > 0, f"kernels not on the path: {launches}"
-    n_boxes = [len(a) for a in answers]
-    log(f"e2e boxes per receipt: min {min(n_boxes)} max {max(n_boxes)}; sample {answers[0][:4]}")
-    assert max(n_boxes) > 0, "no receipt got a box"
-    out = model.ocr.run_images(imgs[:2])
-    for items in out:
-        for it in items:
-            r0, c0, r1, c1 = it["rect"]
-            assert 0 <= r0 < r1 <= RECEIPT_H and 0 <= c0 < c1 <= RECEIPT_W, it
-            assert 0.0 <= it["confidence"] <= 1.0 and np.isfinite(it["confidence"]), it
-    log(f"phase e2e: {time.perf_counter() - t0:.2f} s")
+    plan_launches = plan_dispatches(e2e_cfg, det_sd, rec_sd, args)
+    del args
+    log(f"phase plans: {time.perf_counter() - t0:.2f} s")
 
-    # -- where one dispatch's time goes -------------------------------------
+    # -- phase 6: end to end through the server, bf16 default and int8 cpool2
+    t0 = time.perf_counter()
+    model, launches, rps, _ = serve(e2e_cfg, det_sd, rec_sd, imgs, BF16_DISPATCHES, "bf16 tail,s2d")
+    assert launches["seam_tail"] > 0 and launches["cc"] > 0, f"kernels not on the path: {launches}"
+    log(f"phase e2e bf16: {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
     stages = stage_times(model.ocr, imgs)
-    log("stages ms (one b16 dispatch): " + json.dumps({k: round(v, 3) for k, v in stages.items()}))
-    log(f"phase stages: {time.perf_counter() - t0:.2f} s")
+    log("stages ms (one b16 dispatch, bf16 tail,s2d): "
+        + json.dumps({k: round(v, 3) for k, v in stages.items()}))
+    del model
+    log(f"phase stages bf16: {time.perf_counter() - t0:.2f} s")
 
+    t0 = time.perf_counter()
+    q_cfg = e2e_cfg.replace(quant_int8=True, fused_stages="tail,cpool2")
+    model, q_launches, q_rps, _ = serve(q_cfg, det_sd, rec_sd, imgs, DISPATCHES, "int8 tail,cpool2")
+    for k in ("conv12_pool_conv21_q", "seam_tail", "cc"):
+        assert q_launches[k] > 0, f"{k} not on the int8 cpool2 path: {q_launches}"
+    log(f"e2e int8 tail,cpool2: {q_rps:.2f} receipts/s on {smi} (bf16 tail,s2d: {rps:.2f})")
+    log(f"phase e2e int8: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    stages = stage_times(model.ocr, imgs)
+    log("stages ms (one b16 dispatch, int8 tail,cpool2): "
+        + json.dumps({k: round(v, 3) for k, v in stages.items()}))
+    del model
+    log(f"phase stages int8: {time.perf_counter() - t0:.2f} s")
+
+    # launches: each kernel's count over the timed run of the path that
+    # drives it (the bf16 default plan for the seam tail and CC, the int8
+    # cpool2 plan for #7, one dispatch of bf16 cpool / cpool2 for #5 / #6)
+    paths = {"seam_tail": ("bf16 tail,s2d", launches), "cc": ("bf16 tail,s2d", launches),
+             "conv12_pool": ("bf16 tail,cpool", plan_launches["bf16 tail,cpool"]),
+             "conv12_pool_conv21": ("bf16 tail,cpool2", plan_launches["bf16 tail,cpool2"]),
+             "conv12_pool_conv21_q": ("int8 tail,cpool2", q_launches)}
     kernels = [
         {"name": "seam_tail", "route": "cuda",
          "source": "lightly_ocr_tpu_torch/csrc/seam_tail.cu",
          "replaces": "lightly_ocr_tpu/ops/pallas_tail.py:258",
-         "launches": launches["seam_tail"], "max_abs_err": tail_err,
+         "max_abs_err": tail_err,
          "ms": tail_ms, "plain_ms": tail_plain_ms, "bound_ms": tail_bound,
          "bound_by": tail_by, "library_ms": tail_lib_ms},
         {"name": "connected_components", "route": "cuda",
          "source": "lightly_ocr_tpu_torch/csrc/cc.cu",
          "replaces": "lightly_ocr_tpu/ops/pallas_cc.py:28",
-         "launches": launches["cc"], "max_abs_err": cc_err,
+         "max_abs_err": cc_err,
          "ms": cc_ms, "plain_ms": cc_plain_ms, "bound_ms": cc_bound,
          "bound_by": "bytes", "library_ms": None},
+        *stem_lines.values(),
     ]
+    for k, key in zip(kernels, paths):
+        path, counts = paths[key]
+        k["launches"], k["path"] = counts[key], path
     log(f"total wall: {time.perf_counter() - t_all:.2f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

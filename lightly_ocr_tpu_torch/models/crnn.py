@@ -3,6 +3,8 @@
 Port of ``lightly_ocr_tpu/models/crnn.py`` (reference ``ocr/model.py:
 64-118``) for the slice the serving path runs: ``transform`` None or TPS,
 ``sequence`` None or biLSTM, ``prediction="Attention"`` with greedy decode.
+``quant=True`` runs the ResNet's convs as w8a8 :class:`QuantConv`; TPS,
+BiLSTM and attention stay float, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -17,7 +19,7 @@ from lightly_ocr_tpu_torch.models.tps import TPS_STN
 
 
 class CRNNet(nn.Module):
-    def __init__(self, cfg: Config):
+    def __init__(self, cfg: Config, quant: bool = False):
         super().__init__()
         if cfg.prediction != "Attention":
             raise NotImplementedError(
@@ -29,7 +31,7 @@ class CRNNet(nn.Module):
             TPS_STN(cfg.num_fiducial, cfg.height, cfg.width, cin)
             if cfg.transform == "TPS" else None
         )
-        self.FeatureExtraction = ResNet50v2(cin, cfg.output_channel)
+        self.FeatureExtraction = ResNet50v2(cin, cfg.output_channel, quant)
         n = cfg.output_channel
         self.SequenceModeling = None
         if cfg.sequence == "biLSTM":

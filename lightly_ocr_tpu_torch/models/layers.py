@@ -1,4 +1,4 @@
-"""Shared building blocks of the port's models (NCHW inside, float only).
+"""Shared building blocks of the port's models (NCHW inside).
 
 Module and parameter names follow the reference torch state dict, so the
 output of :func:`lightly_ocr_tpu_torch.weights.state_dict_from_variables`
@@ -32,6 +32,155 @@ class BatchNorm2d(nn.Module):
             x, self.running_mean, self.running_var, self.weight, self.bias,
             training=False, eps=self.eps,
         )
+
+
+def int8_scale(amax: torch.Tensor) -> torch.Tensor:
+    """``max(amax, 1e-12) / 127``, a true float32 division on every device.
+    (PyTorch's CUDA kernels multiply by the reciprocal of a Python-number
+    divisor, which rounds differently from the division the JAX package
+    and the CUDA kernels do.)"""
+    a = amax.clamp_min(1e-12)
+    return a / torch.full_like(a, 127.0)
+
+
+def quantize_per_sample(x: torch.Tensor):
+    """Symmetric per-sample int8 of ``x`` ``[B, ...]`` (the JAX
+    ``QuantConv`` convention): ``sx = max(amax over all but dim 0, 1e-12)
+    / 127`` and ``xq = clip(round(x / sx), -127, 127)``, computed in
+    float32 with a true division and round-half-to-even.  Returns
+    ``(xq int8, sx f32 [B, 1, ..., 1])``."""
+    xf = x.float()
+    dims = tuple(range(1, xf.ndim))
+    sx = int8_scale(xf.abs().amax(dim=dims, keepdim=True))
+    return quantize_with(xf, sx), sx
+
+
+def quantize_with(x: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """``clip(round(x / s), -127, 127)`` as int8 (``s`` broadcasts)."""
+    return torch.clamp(torch.round(x.float() / s), -127, 127).to(torch.int8)
+
+
+def quantize_weight(w: torch.Tensor):
+    """Per-out-channel symmetric int8 of a float32 OIHW (or [out, in])
+    weight: ``sw = max(amax over all but dim 0, 1e-12) / 127``.  Returns
+    ``(wq int8, sw f32 [out])``."""
+    w = w.float()
+    sw = int8_scale(w.abs().amax(dim=tuple(range(1, w.ndim))))
+    return quantize_with(w, sw.view(-1, *([1] * (w.ndim - 1)))), sw
+
+
+def int_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """int8 ``[M, K] @ [K, N]`` -> int32, exact.  ``torch._int_mm`` on a
+    CUDA tensor wants more than 16 rows and K, N multiples of 8: the
+    operands are zero-padded to that (zeros add nothing) and the result
+    cut back."""
+    M, K = a.shape
+    N = b.shape[1]
+    pm, pk, pn = max(0, 17 - M), -K % 8, -N % 8
+    if pm or pk:
+        a = F.pad(a, (0, pk, 0, pm))
+    if pk or pn:
+        b = F.pad(b, (0, pn, 0, pk))
+    # mat2 column-major: cuBLASLt's native int8 layout
+    out = torch._int_mm(a.contiguous(), b.t().contiguous().t())
+    return out[:M, :N] if (pm or pn) else out
+
+
+def int8_conv(xq: torch.Tensor, wq: torch.Tensor, kernel=(3, 3), stride=(1, 1),
+              padding=(0, 0), dilation=(1, 1)) -> torch.Tensor:
+    """int8 NHWC ``[B, H, W, C]`` conv int8 ``[kh*kw*C, N]`` (K is
+    tap-major, ``(i*kw + j)*C + c``) -> int32 NHWC, every sum exact.
+
+    The kh*kw shifted (strided, dilated) taps of the zero-padded input are
+    laid side by side on the channel axis and contracted in one
+    :func:`int_mm`: integer arithmetic, so the result equals XLA's int8
+    convolution bit for bit on any device."""
+    B, H, W, C = xq.shape
+    (kh, kw), (sh, sw), (ph, pw), (dh, dw) = kernel, stride, padding, dilation
+    taps = kh * kw
+    xp = F.pad(xq, (0, 0, pw, pw, ph, ph))
+    Ho = (H + 2 * ph - dh * (kh - 1) - 1) // sh + 1
+    Wo = (W + 2 * pw - dw * (kw - 1) - 1) // sw + 1
+    cols = [xp[:, i * dh: i * dh + sh * (Ho - 1) + 1: sh,
+               j * dw: j * dw + sw * (Wo - 1) + 1: sw]
+            for i in range(kh) for j in range(kw)]
+    a = cols[0] if taps == 1 else torch.cat(cols, dim=-1)
+    return int_mm(a.reshape(B * Ho * Wo, taps * C), wq).view(B, Ho, Wo, -1)
+
+
+def tap_major(w: torch.Tensor) -> torch.Tensor:
+    """OIHW -> ``[kh*kw*I, O]`` with K tap-major (:func:`int8_conv`)."""
+    O, I, kh, kw = w.shape
+    return w.permute(2, 3, 1, 0).reshape(kh * kw * I, O).contiguous()
+
+
+class QuantConv(nn.Conv2d):
+    """``nn.Conv2d`` with the JAX package's w8a8 serving mode
+    (``lightly_ocr_tpu/models/layers.py::QuantConv``), same parameters.
+
+    With ``quant`` on and ``min(in, out) >= 128`` channels: the weights are
+    symmetric per-out-channel int8 from the float32 master, the input
+    symmetric per-sample int8, the products int32 sums
+    (:func:`int8_conv`), then ``y * (sx * sw) + b`` in float32 and a cast
+    to the module's dtype.  Narrower layers, or ``quant`` off, run the
+    float convolution of ``nn.Conv2d``.
+
+    The JAX package keeps float32 master parameters whatever the compute
+    dtype.  :func:`to_serving` moves a model to its device and dtype and
+    has every ``QuantConv`` keep a float32 copy of its weight and bias
+    first (:meth:`master`), from which the int8 codes are taken once."""
+
+    def __init__(self, *args, quant: bool = False, **kw):
+        super().__init__(*args, **kw)
+        self.quant = quant
+        self._master = None
+        self._codes = None
+
+    @property
+    def quantized(self) -> bool:
+        return self.quant and min(self.in_channels, self.out_channels) >= 128
+
+    def master(self):
+        """(weight, bias) in float32: the copies kept by
+        :meth:`keep_master`, else the live parameters upcast."""
+        if self._master is not None:
+            return self._master
+        b = None if self.bias is None else self.bias.detach().float()
+        return self.weight.detach().float(), b
+
+    @torch.no_grad()
+    def keep_master(self) -> None:
+        """Keep float32 copies of the parameters as they are now (and the
+        int8 codes taken from them); a later ``.to(dtype)`` leaves them."""
+        b = None if self.bias is None else self.bias.detach().float().clone()
+        self._master = (self.weight.detach().float().clone(), b)
+        self._codes = self._quantized_weight() if self.quantized else None
+
+    def _quantized_weight(self):
+        wq, sw = quantize_weight(self.master()[0])
+        return tap_major(wq), sw
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.quantized:
+            return super().forward(x)
+        wq, sw = self._codes if self._codes is not None else self._quantized_weight()
+        xq, sx = quantize_per_sample(x.permute(0, 2, 3, 1))  # NHWC
+        y = int8_conv(xq, wq, self.kernel_size, self.stride, self.padding, self.dilation)
+        out = y.float() * (sx * sw)
+        b = self.master()[1]
+        if b is not None:
+            out = out + b
+        return out.to(x.dtype).permute(0, 3, 1, 2)
+
+
+def to_serving(module: nn.Module, device, dtype, memory_format=torch.contiguous_format):
+    """``module.to(device)``, every :class:`QuantConv` keeps its float32
+    master (:meth:`QuantConv.keep_master`), then ``.to(dtype)``."""
+    module.to(device)
+    for m in module.modules():
+        if isinstance(m, QuantConv):
+            m.keep_master()
+    return module.to(dtype).to(memory_format=memory_format)
 
 
 def max_pool(x: torch.Tensor, kernel, stride, padding=0) -> torch.Tensor:

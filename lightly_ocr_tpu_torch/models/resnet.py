@@ -4,30 +4,32 @@ Reference ``ocr/modules/resnet50v1.py:5-135``: two 3x3 stem convs, four
 BasicBlock stages [1, 2, 5, 3], inter-stage convs and the asymmetric
 pool/stride (2, 1) with width padding that turns a 32x100 crop into a
 [1 x 26] feature row.  Parameter names follow ``FeatureExtraction.ConvNet.*``.
+With ``quant=True`` every conv is a :class:`QuantConv` (w8a8 at 128 channels
+and wider), as in the JAX package.
 """
 from __future__ import annotations
 
 import torch.nn.functional as F
 from torch import nn
 
-from lightly_ocr_tpu_torch.models.layers import BatchNorm2d, max_pool
+from lightly_ocr_tpu_torch.models.layers import BatchNorm2d, QuantConv, max_pool
 
 
-def _conv3(cin, cout):
-    return nn.Conv2d(cin, cout, 3, padding=1, bias=False)
+def _conv3(cin, cout, quant):
+    return QuantConv(cin, cout, 3, padding=1, bias=False, quant=quant)
 
 
 class BasicBlock(nn.Module):
-    def __init__(self, inplanes: int, planes: int):
+    def __init__(self, inplanes: int, planes: int, quant: bool = False):
         super().__init__()
-        self.conv1 = _conv3(inplanes, planes)
+        self.conv1 = _conv3(inplanes, planes, quant)
         self.bn1 = BatchNorm2d(planes)
-        self.conv2 = _conv3(planes, planes)
+        self.conv2 = _conv3(planes, planes, quant)
         self.bn2 = BatchNorm2d(planes)
         self.downsample = None
         if inplanes != planes:
             self.downsample = nn.ModuleDict({
-                "0": nn.Conv2d(inplanes, planes, 1, bias=False),
+                "0": QuantConv(inplanes, planes, 1, bias=False, quant=quant),
                 "1": BatchNorm2d(planes),
             })
 
@@ -38,34 +40,36 @@ class BasicBlock(nn.Module):
         return F.relu(y + res)
 
 
-def _stage(inplanes, planes, blocks):
+def _stage(inplanes, planes, blocks, quant):
     return nn.Sequential(
-        BasicBlock(inplanes, planes),
-        *[BasicBlock(planes, planes) for _ in range(blocks - 1)],
+        BasicBlock(inplanes, planes, quant),
+        *[BasicBlock(planes, planes, quant) for _ in range(blocks - 1)],
     )
 
 
 class ResNetFeatures(nn.Module):
-    def __init__(self, in_ch: int, oc: int = 512, layers=(1, 2, 5, 3)):
+    def __init__(self, in_ch: int, oc: int = 512, layers=(1, 2, 5, 3),
+                 quant: bool = False):
         super().__init__()
         blocks = [oc // 4, oc // 2, oc, oc]
-        self.conv0_1 = _conv3(in_ch, oc // 16)
+        self.conv0_1 = _conv3(in_ch, oc // 16, quant)
         self.bn0_1 = BatchNorm2d(oc // 16)
-        self.conv0_2 = _conv3(oc // 16, oc // 8)
+        self.conv0_2 = _conv3(oc // 16, oc // 8, quant)
         self.bn0_2 = BatchNorm2d(oc // 8)
-        self.layer1 = _stage(oc // 8, blocks[0], layers[0])
-        self.conv1 = _conv3(blocks[0], blocks[0])
+        self.layer1 = _stage(oc // 8, blocks[0], layers[0], quant)
+        self.conv1 = _conv3(blocks[0], blocks[0], quant)
         self.bn1 = BatchNorm2d(blocks[0])
-        self.layer2 = _stage(blocks[0], blocks[1], layers[1])
-        self.conv2 = _conv3(blocks[1], blocks[1])
+        self.layer2 = _stage(blocks[0], blocks[1], layers[1], quant)
+        self.conv2 = _conv3(blocks[1], blocks[1], quant)
         self.bn2 = BatchNorm2d(blocks[1])
-        self.layer3 = _stage(blocks[1], blocks[2], layers[2])
-        self.conv3 = _conv3(blocks[2], blocks[2])
+        self.layer3 = _stage(blocks[1], blocks[2], layers[2], quant)
+        self.conv3 = _conv3(blocks[2], blocks[2], quant)
         self.bn3 = BatchNorm2d(blocks[2])
-        self.layer4 = _stage(blocks[2], blocks[3], layers[3])
-        self.conv4_1 = nn.Conv2d(blocks[3], blocks[3], 2, stride=(2, 1), padding=(0, 1), bias=False)
+        self.layer4 = _stage(blocks[2], blocks[3], layers[3], quant)
+        self.conv4_1 = QuantConv(blocks[3], blocks[3], 2, stride=(2, 1), padding=(0, 1), bias=False,
+                                 quant=quant)
         self.bn4_1 = BatchNorm2d(blocks[3])
-        self.conv4_2 = nn.Conv2d(blocks[3], blocks[3], 2, stride=1, padding=0, bias=False)
+        self.conv4_2 = QuantConv(blocks[3], blocks[3], 2, stride=1, padding=0, bias=False, quant=quant)
         self.bn4_2 = BatchNorm2d(blocks[3])
 
     def forward(self, x):
@@ -85,9 +89,9 @@ class ResNetFeatures(nn.Module):
 class ResNet50v2(nn.Module):
     """Wrapper of the reference class of the same name (``ConvNet.*``)."""
 
-    def __init__(self, in_ch: int, output_channel: int = 512):
+    def __init__(self, in_ch: int, output_channel: int = 512, quant: bool = False):
         super().__init__()
-        self.ConvNet = ResNetFeatures(in_ch, output_channel)
+        self.ConvNet = ResNetFeatures(in_ch, output_channel, quant=quant)
 
     def forward(self, x):
         return self.ConvNet(x)

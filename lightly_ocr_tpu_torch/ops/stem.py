@@ -1,0 +1,252 @@
+"""The fused conv1_2 + pool detector front (kernels of ``csrc/stem.cu``).
+
+Port of the three conv-pool kernels of ``lightly_ocr_tpu/ops/pallas_stem.py``
+(``fused_conv12_pool``, ``fused_conv12_pool_conv21`` and
+``fused_conv12_pool_conv21_q``).  Each takes the conv1_1 activation ``x0``
+``[B, H, W, 64]`` NHWC (:meth:`VGG_UNet.stem_prefix`) and computes, with BN
+folded into the convs (:func:`stem_params`):
+
+* :func:`fused_conv12_pool`: ``pool2x2(relu(conv1_2(x0) + b1))`` ->
+  ``[B, H/2, W/2, 64]`` bf16;
+* :func:`fused_conv12_pool_conv21`: that pooled map cast to bf16, then
+  ``relu(conv2_1(p) + b2)`` with zero padding -> ``[B, H/2, W/2, 128]`` bf16;
+* :func:`fused_conv12_pool_conv21_q`: the w8a8 form: ``x0`` quantized per
+  sample, int8 conv1_2 with int32 sums dequantized by ``sx * sw1``, bias,
+  ReLU, pool in float32; the pooled map requantized per row block of
+  ``rows / 2`` pooled rows with ``s2 = max(amax, 1e-12) / 127`` over the
+  block's rows and one halo row on each side (``pallas_stem.py:641-651``),
+  every row that a block reads quantized with that block's ``s2``; int8
+  conv2_1 dequantized by ``s2 * sw2``, bias, ReLU -> bf16.
+
+  Rounding of #7 is that of the JAX kernel as XLA runs it: each dequant
+  ``y * s + b`` is one fused multiply-add (one rounding) and the requant
+  multiplies by the float32 reciprocal of ``s2``.  (Rounded apart, with a
+  true division, an int8 code flips at a .5 boundary about once per 10^5
+  values against the JAX kernel.)  The plain version computes the FMA
+  exactly in float64 and the CUDA kernel with ``__fmaf_rn``, so the two
+  agree bit for bit: every int8 product and int32 sum is exact.
+
+Each wrapper takes its plain PyTorch version (``*_plain``) for a CPU tensor,
+and for a CUDA tensor launches the kernels or raises.  The trunk resumes
+after them through ``VGG_UNet.trunk(..., resume="pool" | "c21")``.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+
+from lightly_ocr_tpu_torch.models.layers import (
+    int8_conv,
+    int8_scale,
+    quantize_per_sample,
+    quantize_weight,
+    tap_major,
+)
+from lightly_ocr_tpu_torch.ops import native
+from lightly_ocr_tpu_torch.ops.seam_tail import fold_bn
+
+
+class StemParams(NamedTuple):
+    w1: torch.Tensor  # [576, 64] bf16, conv1_2 + BN folded, K tap-major
+    b1: torch.Tensor  # [64] f32
+    w2: torch.Tensor  # [576, 128] bf16, conv2_1 + BN folded
+    b2: torch.Tensor  # [128] f32
+    q1: torch.Tensor  # [576, 64] int8 codes of the folded float32 conv1_2
+    sw1: torch.Tensor  # [64] f32 per-out-channel scales
+    q2: torch.Tensor  # [576, 128] int8
+    sw2: torch.Tensor  # [128] f32
+
+
+@torch.no_grad()
+def stem_params(det_net) -> StemParams:
+    """Folded conv1_2 (slice1 ``3``/``4``) and conv2_1 (``7``/``8``) of a
+    float32 :class:`VGG_UNet`: BN folded in float32, then the bf16 kernels
+    (``conv12_params``/``conv21_params``) and the int8 codes of the folded
+    float32 kernels (``_wtap_q``)."""
+    s1 = det_net.basenet.slice1
+    k1, b1 = fold_bn(s1["3"], s1["4"])
+    k2, b2 = fold_bn(s1["7"], s1["8"])
+    q1, sw1 = quantize_weight(k1)
+    q2, sw2 = quantize_weight(k2)
+    return StemParams(
+        w1=tap_major(k1).to(torch.bfloat16), b1=b1.contiguous(),
+        w2=tap_major(k2).to(torch.bfloat16), b2=b2.contiguous(),
+        q1=tap_major(q1), sw1=sw1.contiguous(), q2=tap_major(q2), sw2=sw2.contiguous(),
+    )
+
+
+def _pick_rows_even(h: int) -> int:
+    """Largest even row block dividing ``h`` from the supported set (the
+    JAX package's ``pallas_stem._pick_rows_even``)."""
+    for r in (32, 16, 8, 4, 2):
+        if h % r == 0:
+            return r
+    return 0
+
+
+def conv_pool_supported(h: int, w: int) -> bool:
+    return h % 2 == 0 and w % 16 == 0 and _pick_rows_even(h) != 0
+
+
+def _oihw(w_km: torch.Tensor) -> torch.Tensor:
+    """[9 * I, O] tap-major -> OIHW float32."""
+    O = w_km.shape[1]
+    return w_km.float().view(3, 3, -1, O).permute(3, 2, 0, 1)
+
+
+def _conv_bias_relu(x_nhwc: torch.Tensor, w_km: torch.Tensor, b: torch.Tensor):
+    """float32 SAME 3x3 conv, then + bias, then ReLU (NCHW out)."""
+    y = F.conv2d(x_nhwc.permute(0, 3, 1, 2).float(), _oihw(w_km), padding=1)
+    return F.relu(y + b[:, None, None])
+
+
+def _nhwc(x: torch.Tensor) -> torch.Tensor:
+    return x.permute(0, 2, 3, 1).contiguous()
+
+
+def conv12_pool_plain(x0: torch.Tensor, p: StemParams) -> torch.Tensor:
+    """Plain version of kernel #5: bf16 operands upcast (their products are
+    exact in float32), float32 sums, bias, ReLU, 2x2 max, one cast."""
+    x0 = x0.to(torch.bfloat16)
+    return _nhwc(F.max_pool2d(_conv_bias_relu(x0, p.w1, p.b1), 2)).to(torch.bfloat16)
+
+
+def conv12_pool_conv21_plain(x0: torch.Tensor, p: StemParams) -> torch.Tensor:
+    """Plain version of kernel #6: #5's bf16 pooled map, then conv2_1 with
+    zero padding, bias, ReLU, bf16."""
+    return _nhwc(_conv_bias_relu(conv12_pool_plain(x0, p), p.w2, p.b2)).to(torch.bfloat16)
+
+
+def requant_windows(pooled: torch.Tensor, rows: int):
+    """The f32 pooled map ``[B, H2, W2, C]`` -> (windows ``[B, nblk, r2 + 2,
+    W2, C]``: each block's ``r2 = rows / 2`` pooled rows with one halo row
+    on each side, zero outside the map; ``s2 [B, nblk]``)."""
+    r2 = rows // 2
+    padded = F.pad(pooled, (0, 0, 0, 0, 1, 1))
+    win = padded.unfold(1, r2 + 2, r2).permute(0, 1, 4, 2, 3)
+    s2 = int8_scale(win.abs().amax(dim=(2, 3, 4)))
+    return win, s2
+
+
+def _fma(a: torch.Tensor, s: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """float32 ``a * s + b`` with one rounding: the product of two float32
+    values is exact in float64, and so, but for a double rounding too rare
+    to meet, is the sum."""
+    return (a.double() * s.double() + b.double()).float()
+
+
+def conv12_pool_conv21_q_plain(x0: torch.Tensor, p: StemParams) -> torch.Tensor:
+    """Plain version of kernel #7, with :func:`int8_conv` (exact int32
+    sums) for both convs and the blockwise requant of
+    :func:`requant_windows`."""
+    B, H, W, _ = x0.shape
+    xq, sx = quantize_per_sample(x0)
+    a = _fma(int8_conv(xq, p.q1, padding=(1, 1)).float(), sx * p.sw1, p.b1)
+    pooled = _nhwc(F.max_pool2d(F.relu(a).permute(0, 3, 1, 2), 2))
+    win, s2 = requant_windows(pooled, _pick_rows_even(H))
+    nblk, r2 = win.shape[1], win.shape[2] - 2
+    s2 = s2[:, :, None, None, None]
+    q = torch.clamp(torch.round(win * (torch.ones_like(s2) / s2)), -127, 127).to(torch.int8)
+    y = int8_conv(q.reshape(B * nblk, *q.shape[2:]), p.q2, padding=(0, 1))
+    y = _fma(y.view(B, nblk, r2, W // 2, -1).float(), s2 * p.sw2, p.b2)
+    return F.relu(y).reshape(B, H // 2, W // 2, -1).to(torch.bfloat16)
+
+
+_VP, _I = ctypes.c_void_p, ctypes.c_int
+_SIG = {
+    "conv12_pool_bf16": [_VP] * 4 + [_I] * 3 + [_VP],
+    "conv21_bf16": [_VP] * 4 + [_I] * 3 + [_VP],
+    "quantize_per_sample_bf16": [_VP] * 4 + [_I, ctypes.c_longlong, _VP],
+    "conv12_pool_s8": [_VP] * 6 + [_I] * 3 + [_VP],
+    "requant_scales": [_VP] * 2 + [_I] * 4 + [_VP],
+    "conv21_s8": [_VP] * 6 + [_I] * 4 + [_VP],
+}
+
+
+def _check(name: str, x0: torch.Tensor, p: StemParams, fields) -> None:
+    if x0.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {x0.device}")
+    if x0.ndim != 4 or x0.shape[3] != 64 or x0.dtype != torch.bfloat16 or not x0.is_contiguous():
+        raise ValueError(f"{name}: x0 must be contiguous bf16 [B, H, W, 64], got {x0.dtype} {tuple(x0.shape)}")
+    if not conv_pool_supported(x0.shape[1], x0.shape[2]):
+        raise ValueError(f"{name}: unsupported size {x0.shape[1]}x{x0.shape[2]} (H even with an even row split, W % 16 == 0)")
+    for f in fields:
+        t = getattr(p, f)
+        want = {"w": torch.bfloat16, "b": torch.float32, "q": torch.int8, "s": torch.float32}[f[0]]
+        if t.dtype != want or t.device != x0.device or not t.is_contiguous():
+            raise ValueError(f"{name}: param {f} must be contiguous {want} on {x0.device}, got {t.dtype} on {t.device}")
+
+
+def _pooled(x0: torch.Tensor, p: StemParams) -> torch.Tensor:
+    B, H, W, _ = x0.shape
+    lib = native.load("stem", _SIG)
+    out = torch.empty((B, H // 2, W // 2, 64), dtype=torch.bfloat16, device=x0.device)
+    native.check(lib.conv12_pool_bf16(*map(native.ptr, (x0, p.w1, p.b1, out)), B, H, W,
+                                      native.stream(x0.device)), "conv12_pool_bf16")
+    return out
+
+
+def fused_conv12_pool(x0: torch.Tensor, p: StemParams) -> torch.Tensor:
+    """Kernel #5: conv1_2 + BN + ReLU + 2x2 pool, ``[B, H, W, 64]`` bf16 ->
+    ``[B, H/2, W/2, 64]`` bf16."""
+    if x0.device.type == "cpu":
+        return conv12_pool_plain(x0, p)
+    _check("fused_conv12_pool", x0, p, ("w1", "b1"))
+    out = _pooled(x0, p)
+    fused_conv12_pool.launches += 1
+    return out
+
+
+def fused_conv12_pool_conv21(x0: torch.Tensor, p: StemParams) -> torch.Tensor:
+    """Kernel #6: #5, then conv2_1 + BN + ReLU -> ``[B, H/2, W/2, 128]``
+    bf16 (two launches)."""
+    if x0.device.type == "cpu":
+        return conv12_pool_conv21_plain(x0, p)
+    _check("fused_conv12_pool_conv21", x0, p, ("w1", "b1", "w2", "b2"))
+    B, H, W, _ = x0.shape
+    pooled = _pooled(x0, p)
+    lib = native.load("stem", _SIG)
+    out = torch.empty((B, H // 2, W // 2, 128), dtype=torch.bfloat16, device=x0.device)
+    native.check(lib.conv21_bf16(*map(native.ptr, (pooled, p.w2, p.b2, out)), B, H // 2, W // 2,
+                                 native.stream(x0.device)), "conv21_bf16")
+    fused_conv12_pool_conv21.launches += 1
+    return out
+
+
+def fused_conv12_pool_conv21_q(x0: torch.Tensor, p: StemParams) -> torch.Tensor:
+    """Kernel #7: the w8a8 form of #6 -> ``[B, H/2, W/2, 128]`` bf16, in
+    four steps: the per-sample quantization of ``x0`` (which the JAX
+    package runs in XLA before its kernel; two launches), int8 conv1_2 +
+    pool into a float32 pooled map, the block scales ``s2``, and the int8
+    conv2_1 that quantizes the pooled map as it loads it."""
+    if x0.device.type == "cpu":
+        return conv12_pool_conv21_q_plain(x0, p)
+    _check("fused_conv12_pool_conv21_q", x0, p, ("q1", "sw1", "b1", "q2", "sw2", "b2"))
+    B, H, W, _ = x0.shape
+    H2, W2, r2 = H // 2, W // 2, _pick_rows_even(H) // 2
+    lib = native.load("stem", _SIG)
+    s = native.stream(x0.device)
+    amax = torch.zeros((B,), dtype=torch.float32, device=x0.device)
+    xq = torch.empty(x0.shape, dtype=torch.int8, device=x0.device)
+    sx = torch.empty((B,), dtype=torch.float32, device=x0.device)
+    native.check(lib.quantize_per_sample_bf16(*map(native.ptr, (x0, amax, xq, sx)), B,
+                                              H * W * 64, s), "quantize_per_sample_bf16")
+    pooled = torch.empty((B, H2, W2, 64), dtype=torch.float32, device=x0.device)
+    s2 = torch.empty((B, H2 // r2), dtype=torch.float32, device=x0.device)
+    out = torch.empty((B, H2, W2, 128), dtype=torch.bfloat16, device=x0.device)
+    native.check(lib.conv12_pool_s8(*map(native.ptr, (xq, sx, p.q1, p.sw1, p.b1, pooled)),
+                                    B, H, W, s), "conv12_pool_s8")
+    native.check(lib.requant_scales(native.ptr(pooled), native.ptr(s2), B, H2, W2, r2, s),
+                 "requant_scales")
+    native.check(lib.conv21_s8(*map(native.ptr, (pooled, s2, p.q2, p.sw2, p.b2, out)),
+                               B, H2, W2, r2, s), "conv21_s8")
+    fused_conv12_pool_conv21_q.launches += 1
+    return out
+
+
+fused_conv12_pool.launches = 0
+fused_conv12_pool_conv21.launches = 0
+fused_conv12_pool_conv21_q.launches = 0

@@ -7,10 +7,24 @@ coordinates -> bicubic matmul crops from the original-resolution gray
 images -> one CRNN dispatch over ``B * M`` crops -> greedy attention decode
 -> the vectorised host string decode.  Only the last step runs on the host.
 
-The detector runs the plan the JAX package serves on its accelerator: trunk
-with the seam-split decoder, then the fused tail.  conv1_1 .. pool1 run as
-the plain slice1 convolutions (the JAX package's space-to-depth stem is a
-TPU layout rewrite of the same function).
+The detector runs the plan the JAX package serves on its accelerator
+(``_fused_kernel_plan``), read from ``Config.fused_stages`` and
+``Config.quant_int8``:
+
+* ``tail``: trunk with the seam-split decoder, then the fused tail kernel;
+  without it, the plain detector (no kernel; the JAX package off its
+  accelerator);
+* ``cpool2``: conv1_1 prefix, then the conv1_2 + pool + conv2_1 kernel
+  (#7 ``fused_conv12_pool_conv21_q`` under ``quant_int8``, else #6), and
+  the trunk resumed at conv2_2; ``cpool``: the conv1_2 + pool kernel (#5)
+  and the trunk resumed at conv2_1.  Either needs the tail and a canvas
+  that ``conv_pool_supported`` takes; ``cpool2`` wins over ``cpool``;
+* ``s2d``: the plain slice1 convolutions (the JAX package's space-to-depth
+  stem is a TPU layout rewrite of the same function);
+* ``stem`` (the full-resolution conv1_2 kernel, off under int8) is not
+  ported: a plan that would run it raises.
+
+``quant_int8`` builds both networks with w8a8 ``QuantConv`` layers.
 """
 from __future__ import annotations
 
@@ -20,6 +34,7 @@ import torch
 from lightly_ocr_tpu_torch.config import Config
 from lightly_ocr_tpu_torch.models.crnn import CRNNet
 from lightly_ocr_tpu_torch.models.decode import decode_crops
+from lightly_ocr_tpu_torch.models.layers import to_serving
 from lightly_ocr_tpu_torch.models.vgg_unet import VGG_UNet
 from lightly_ocr_tpu_torch.ops.cc import label_components
 from lightly_ocr_tpu_torch.ops.crop import crop_resize_normalize_matmul
@@ -31,6 +46,13 @@ from lightly_ocr_tpu_torch.ops.image import (
     plan_aspect_resize,
 )
 from lightly_ocr_tpu_torch.ops.seam_tail import fused_tail_scores_cs_seam, tail_params
+from lightly_ocr_tpu_torch.ops.stem import (
+    conv_pool_supported,
+    fused_conv12_pool,
+    fused_conv12_pool_conv21,
+    fused_conv12_pool_conv21_q,
+    stem_params,
+)
 from lightly_ocr_tpu_torch.text.converters import AttnLabelConverter
 
 _LUMA = np.asarray([0.299, 0.587, 0.114], np.float32)
@@ -63,23 +85,47 @@ class BatchedOCR:
         self.device = resolve_device(device)
         self.dtype = dtype
         self.boxes_per_image = boxes_per_image
-        det = VGG_UNet()
+        stages = cfg.derived_fused_stages
+        self.use_tail = "tail" in stages
+        if self.use_tail and "stem" in stages and not cfg.quant_int8:
+            raise NotImplementedError(
+                "fused stage 'stem' (TPU kernel _stem_kernel) is not ported to the "
+                "PyTorch/CUDA package yet (ROADMAP.md, Queue 2)"
+            )
+        # the fused conv1_2 + pool kernel of the plan and the trunk's resume point
+        self.front, self.resume = None, None
+        if self.use_tail and "cpool2" in stages:
+            self.resume = "c21"
+            self.front = (fused_conv12_pool_conv21_q if cfg.quant_int8
+                          else fused_conv12_pool_conv21)
+        elif self.use_tail and "cpool" in stages:
+            self.front, self.resume = fused_conv12_pool, "pool"
+        det = VGG_UNet(quant=cfg.quant_int8)
         det.load_state_dict(det_state, strict=True)
-        # fold the tail's BNs from the float32 master weights, then cast
+        # fold the kernels' BNs from the float32 master weights, then cast
         tail = tail_params(det, dtype)
         self.tail = type(tail)(*(p.to(self.device) for p in tail))
+        stem = stem_params(det)
+        self.stem = type(stem)(*(p.to(self.device) for p in stem))
         fmt = torch.channels_last if self.device.type == "cuda" else torch.contiguous_format
-        self.det_net = det.to(self.device, dtype).to(memory_format=fmt).eval()
-        rec = CRNNet(cfg)
+        self.det_net = to_serving(det, self.device, dtype, fmt).eval()
+        rec = CRNNet(cfg, quant=cfg.quant_int8)
         rec.load_state_dict(rec_state, strict=True)
-        self.rec_net = rec.to(self.device, dtype).eval()
+        self.rec_net = to_serving(rec, self.device, dtype).eval()
         self.converter = AttnLabelConverter(cfg.character)
         self._chartab = np.asarray(self.converter.character, dtype="<U1")
 
     def detector_scores(self, canvases: torch.Tensor):
         """[B, H, W, 3] normalized canvases -> (region, affinity) f32
-        [B, H/2, W/2] each."""
-        y_lo, t = self.det_net.trunk(canvases)
+        [B, H/2, W/2] each, by the plan of the module docstring."""
+        if not self.use_tail:
+            y, _ = self.det_net(canvases)
+            return y[..., 0].float(), y[..., 1].float()
+        if self.front is not None and conv_pool_supported(*canvases.shape[1:3]):
+            x0 = self.det_net.stem_prefix(canvases)
+            y_lo, t = self.det_net.trunk(self.front(x0, self.stem), resume=self.resume)
+        else:
+            y_lo, t = self.det_net.trunk(canvases)
         y = fused_tail_scores_cs_seam(self.tail, y_lo, t)  # [B, H2, 2, W2]
         return y[:, :, 0], y[:, :, 1]
 

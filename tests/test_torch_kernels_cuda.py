@@ -2,7 +2,8 @@
 
 Every test here is marked ``cuda`` and skips without a CUDA device (the
 kernels have no CPU mode; their plain versions are held against the JAX
-package in ``test_torch_seam_tail.py`` and ``test_torch_cc.py``).  This
+package in ``test_torch_seam_tail.py``, ``test_torch_cc.py`` and
+``test_torch_stem.py``).  This
 file imports nothing of JAX, so it runs on the card's machine, which has
 no JAX, without the repository's conftest:
 
@@ -16,6 +17,7 @@ from lightly_ocr_tpu_torch.models.layers import init_module
 from lightly_ocr_tpu_torch.models.vgg_unet import VGG_UNet
 from lightly_ocr_tpu_torch.ops import cc
 from lightly_ocr_tpu_torch.ops import seam_tail as st
+from lightly_ocr_tpu_torch.ops import stem
 
 pytestmark = pytest.mark.cuda
 
@@ -77,3 +79,50 @@ def test_cc_kernel_matches_plain(cuda_device, case):
     assert cc.label_components.launches == n + 1
     assert torch.equal(got, cc.label_components_plain(fg))
     assert cc.labels_converged(fg, got)
+
+
+@pytest.fixture
+def stem_setup(cuda_device, monkeypatch):
+    # the plain versions' float32 convolutions in full float32, not TF32
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    net = init_module(VGG_UNet(), torch.Generator().manual_seed(2))
+    p = stem.stem_params(net)
+    return type(p)(*(a.to(cuda_device) for a in p))
+
+
+STEM_KERNELS = ["fused_conv12_pool", "fused_conv12_pool_conv21", "fused_conv12_pool_conv21_q"]
+
+
+@pytest.mark.parametrize("shape", [(3, 64, 48), (1, 2, 16), (2, 66, 32), (1, 96, 160)],
+                         ids=["odd_batch", "smallest", "rows2_odd_h2", "wide"])
+@pytest.mark.parametrize("name", STEM_KERNELS)
+def test_stem_kernel_matches_plain(cuda_device, stem_setup, name, shape):
+    """#5/#6: the same bf16 operands summed in another order: at least 90%
+    of outputs bit-identical, max |diff| within 1% of the largest.  #7:
+    exact int8 products and the plain version's rounding: at least 99%
+    bit-identical, max |diff| within 1% of the largest."""
+    B, H, W = shape
+    assert stem.conv_pool_supported(H, W)
+    fn = getattr(stem, name)
+    g = torch.Generator().manual_seed(3)
+    x0 = torch.relu(torch.randn(B, H, W, 64, generator=g)).to(cuda_device, torch.bfloat16)
+    n = fn.launches
+    got = fn(x0, stem_setup)
+    torch.cuda.synchronize()
+    assert fn.launches == n + 1
+    plain = getattr(stem, name.replace("fused_", "") + "_plain")
+    ref = plain(x0, stem_setup)
+    assert got.shape == ref.shape and got.dtype == ref.dtype == torch.bfloat16
+    got, ref = got.float(), ref.float()
+    assert torch.isfinite(got).all()
+    assert (got - ref).abs().max().item() <= 1e-2 * ref.abs().max().item()
+    exact = (got == ref).float().mean().item()
+    assert exact >= (0.99 if name.endswith("_q") else 0.9)
+
+
+def test_stem_kernels_reject_bad_input(cuda_device, stem_setup):
+    x = torch.zeros(1, 32, 32, 64, device=cuda_device)
+    with pytest.raises(ValueError):
+        stem.fused_conv12_pool(x, stem_setup)  # f32 x0
+    with pytest.raises(ValueError):
+        stem.fused_conv12_pool_conv21_q(x.to(torch.bfloat16)[:, :, :24].contiguous(), stem_setup)  # W % 16

@@ -78,6 +78,31 @@ def test_run_images_matches_jax_batched_ocr(slice_setup):
             assert np.abs(np.asarray(g["rect"]) - np.asarray(r["rect"])).max() <= 1.0
 
 
+def test_run_images_int8_matches_jax_batched_ocr(slice_setup):
+    """int8 serving (``quant_int8=True``, the default plan) vs the JAX
+    ``BatchedOCR(quant_int8=True)`` on the CPU, under the int8 gates of
+    ``tests/test_quant.py``: identical transcripts, rects within 4 px,
+    confidences within 0.05.  (The ``cpool2`` plan also quantizes conv1_2
+    and conv2_1, which the plain int8 detector keeps float, so it is a
+    different function; ``test_torch_stem.py`` holds it to the JAX plan
+    that runs it.)"""
+    images, dv, rv, kw = slice_setup
+    ref = JBatchedOCR(JConfig(**kw, quant_int8=True), dv, rv, boxes_per_image=8,
+                      dtype=jnp.float32).run_images(images)
+    ocr = BatchedOCR(Config(**kw, quant_int8=True),
+                     state_dict_from_variables(dv), state_dict_from_variables(rv),
+                     boxes_per_image=8, dtype=torch.float32, device="cpu")
+    assert ocr.det_net.basenet.slice5["1"].quantized
+    got = ocr.run_images(images)
+    assert sum(len(r) for r in ref) >= 6
+    for r_img, g_img in zip(ref, got):
+        assert len(g_img) == len(r_img)
+        for r, g in zip(r_img, g_img):
+            assert g["text"] == r["text"]
+            assert abs(g["confidence"] - r["confidence"]) <= 0.05
+            assert np.abs(np.asarray(g["rect"]) - np.asarray(r["rect"])).max() <= 4.0
+
+
 def test_serve_model_behind_worker(slice_setup):
     images, dv, rv, kw = slice_setup
     model = BatchedServeModel(Config(**kw), thresh=-1.0, boxes_per_image=8, device="cpu",
