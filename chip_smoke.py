@@ -8,28 +8,33 @@ exits non-zero with the traceback):
 
 1. build the CUDA kernels from ``lightly_ocr_tpu_torch/csrc`` (one ``nvcc``
    per source, all started together) and load them with ``ctypes``;
-2. seam-tail kernel vs its plain PyTorch version at the serving shapes
+2. seam-tail kernel (#1) vs its plain PyTorch version at the serving shapes
    (batch 16, 960x640 canvas -> 480x320 maps) on the port's own trunk
-   output, plus the same chain as ``F.conv2d`` calls as a yardstick;
+   output, plus the same chain as ``F.conv2d`` calls as a yardstick; then
+   the tail chain alone (#3, the legacy pad+kernel tail) vs its plain
+   version on the 64-channel activation formed from the same trunk output;
 3. connected-components kernel vs its plain version, labels exactly equal,
    on the phase-2 foreground masks and on a 480x320 adversarial spiral;
-4. the fused conv1_2 + pool front (``csrc/stem.cu``): kernels #5
-   (conv1_2 + pool), #6 (+ conv2_1) and #7 (w8a8 #6), each vs its plain
-   version on the served model's own conv1_1 activation of the receipts
-   (batch 16, 960x640), #7 also vs the float #6 chain; each timed beside
-   its bound, its plain version and the cuDNN bf16 chain;
+4. the fused conv1_2 front (``csrc/stem.cu``): kernels #4 (conv1_2 at full
+   resolution), #5 (conv1_2 + pool), #6 (+ conv2_1) and #7 (w8a8 #6), each
+   vs its plain version on the served model's own conv1_1 activation of the
+   receipts (batch 16, 960x640), #7 also vs the float #6 chain; each timed
+   beside its bound, its plain version and the cuDNN bf16 chain;
 5. one dispatch of each other serving plan (bf16 ``tail,cpool``, bf16
-   ``tail,cpool2``, int8 ``tail,s2d``) on the same receipts, each checked
-   for its kernel (or, for int8 ``s2d``, for its int8 convs) and compared
-   with the bf16 default plan (printed, not gated);
+   ``tail,cpool2``, int8 ``tail,s2d``, bf16 ``tail,stem``, and bf16
+   ``tail,s2d`` with ``LIGHTLY_OCR_TAIL_SEAMK=0``) on the same receipts,
+   each checked for its kernels (or, for int8 ``s2d``, for its int8 convs)
+   and compared with the bf16 default plan (printed; the ``SEAMK=0`` plan,
+   which runs #3 in place of the seam kernel, is also gated);
 6. end to end: ``BatchedServeModel.predict_many`` behind an
    ``InferenceWorker`` answers batches of synthetic 600x400 receipts at the
    full model width (VGG16-BN CRAFT; TPS + ResNet(512) + BiLSTM(256) +
-   Attention; 32 boxes per receipt; random weights from a seed), first in
-   bf16 with the default plan (seam tail and CC must launch), then in the
+   Attention; 32 boxes per receipt; random weights from a seed), in bf16
+   with the default plan (kernel #5, seam tail and CC must launch), in
+   bf16 ``tail,stem`` (kernel #4, seam tail and CC must launch), and in the
    int8 ``tail,cpool2`` plan (kernel #7, seam tail and CC must launch); at
    least one receipt must get a box in each;
-7. a per-stage breakdown of one dispatch of each of the two served plans.
+7. a per-stage breakdown of one dispatch of each of the three served plans.
 
 Then one JSON line with each kernel's numbers, and as the last line
 ``{"ok": true, "device": {...}}``.  TF32 is switched OFF for float32 matmuls
@@ -64,11 +69,12 @@ PEAK_BYTES = 3.35e12
 TAIL_TOL = 2e-2  # max |diff|, relative to the plain scores' max |value|
 TAIL_EXACT = 0.9  # least share of scores bit-identical to the plain version
 TAIL_FLIPS = 1e-4  # most fg-mask pixels that flip, as a share of all pixels
-# conv1_2 + pool kernels vs plain (tests/test_torch_kernels_cuda.py's bounds):
-# #5/#6 sum the same bf16 operands in another order; #7's int8 sums are
+# conv1_2 kernels vs plain (tests/test_torch_kernels_cuda.py's bounds):
+# #4/#5/#6 sum the same bf16 operands in another order; #7's int8 sums are
 # exact and it rounds as its plain version does
 STEM_TOL = 1e-2  # max |diff|, relative to the plain output's max |value|
-STEM_EXACT = {"conv12_pool": 0.9, "conv12_pool_conv21": 0.9, "conv12_pool_conv21_q": 0.99}
+STEM_EXACT = {"stem_conv": 0.9, "conv12_pool": 0.9, "conv12_pool_conv21": 0.9,
+              "conv12_pool_conv21_q": 0.99}
 # #7 vs the float #6 chain: the JAX package's gate (tests/test_pallas_stem.py)
 Q_CORR, Q_REL = 0.999, 0.05
 
@@ -119,6 +125,12 @@ def tail_library(ya, t, p):
                        align_corners=False)
     x = F.relu(up + F.conv2d(tn, p.k1b.t()[:, :, None, None]).float()
                + p.b1[:, None, None]).to(torch.bfloat16)
+    return chain_library(x, p)
+
+
+def chain_library(x, p):
+    """Kernel #3's chain (four 3x3 convs, two 1x1s) as stock PyTorch bf16
+    calls on NCHW ``x`` (timing yardstick only)."""
     for wk, bk in ((p.wa, p.ba), (p.w0, p.b0), (p.w2, p.b2), (p.w4, p.b4)):
         oihw = wk.reshape(3, 3, wk.shape[1], wk.shape[2]).permute(3, 2, 0, 1)
         x = F.relu(F.conv2d(x, oihw, bk.to(torch.bfloat16), padding=1))
@@ -136,6 +148,42 @@ def tail_bound_ms(B: int, H2: int, W2: int) -> tuple[float, str]:
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def chain_bound_ms(B: int, H2: int, W2: int) -> tuple[float, str]:
+    """Least time for kernel #3: 41,760 MACs a map pixel (3x3 64->32,
+    32->32 twice, 32->16, 1x1 16->16, 16->2) over the bf16 peak; bytes = x
+    (64 bf16 channels) read once, the scores (2 f32) written once, the
+    weights."""
+    px = B * H2 * W2
+    flops = 2 * px * (9 * 64 * 32 + 2 * 9 * 32 * 32 + 9 * 32 * 16 + 16 * 16 + 16 * 2)
+    weights = 2 * (9 * (64 * 32 + 2 * 32 * 32 + 32 * 16) + 16 * 16 + 32)
+    nbytes = px * 64 * 2 + px * 2 * 4 + weights
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def tail_gates(name: str, got, ref):
+    """The seam tail's gates on channels-second scores: max |diff| within
+    TAIL_TOL of the largest, at least TAIL_EXACT bit-identical, at most
+    TAIL_FLIPS of the fg-mask pixels flipped at thresholds from quantiles of
+    ``ref``.  Returns (max |diff|, the fg mask of ``got``)."""
+    err = (got - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    region, link = ref[:, :, 0], ref[:, :, 1]
+    low_text = torch.quantile(region.flatten()[:: 97].float(), 0.80).item()
+    link_thr = torch.quantile(link.flatten()[:: 97].float(), 0.97).item()
+    fg_ref = (region > low_text) | (link > link_thr)
+    fg_got = (got[:, :, 0] > low_text) | (got[:, :, 1] > link_thr)
+    flips = int((fg_ref != fg_got).sum().item())
+    exact = (got == ref).float().mean().item()
+    log(f"{name}: maxdiff {err:.3e} (max |score| {scale:.3e}, tol {TAIL_TOL} x max); "
+        f"bit-identical {exact:.4f} (min {TAIL_EXACT}); fg flips {flips} of {fg_ref.numel()} "
+        f"(max {TAIL_FLIPS} x) at low_text {low_text:.4g} link {link_thr:.4g}")
+    assert err <= TAIL_TOL * max(scale, 1e-6), f"{name} kernel disagrees with its plain version"
+    assert exact >= TAIL_EXACT, f"{name} kernel: too few scores equal the plain version"
+    assert flips <= TAIL_FLIPS * fg_ref.numel(), f"{name} kernel: too many fg-mask flips"
+    return err, fg_got
+
+
 def stem_library(x0, w1, b1, w2=None, b2=None):
     """conv1_2 + pool (+ conv2_1) as stock PyTorch bf16 calls with the folded
     weights: ``conv2d``, ReLU, ``max_pool2d`` (timing yardstick only)."""
@@ -145,22 +193,25 @@ def stem_library(x0, w1, b1, w2=None, b2=None):
     return y
 
 
-def stem_bound_ms(B: int, H: int, W: int, conv21: bool, int8: bool) -> tuple[float, str]:
-    """Least time for kernel #5 (``conv21`` False) or #6/#7: the 3x3 64->64
-    conv at full resolution (+ the 3x3 64->128 conv at half) over the bf16
-    or int8 peak; bytes = x0 (bf16) read once, the weights, the bf16 output
-    written once."""
+def stem_bound_ms(B: int, H: int, W: int, conv21: bool, int8: bool,
+                  pool: bool = True) -> tuple[float, str]:
+    """Least time for kernel #5 (``conv21`` False), #6/#7, or #4 (``pool``
+    False): the 3x3 64->64 conv at full resolution (+ the 3x3 64->128 conv
+    at half) over the bf16 or int8 peak; bytes = x0 (bf16) read once, the
+    weights, the bf16 output (pooled, or full-resolution for #4) written
+    once."""
     px = B * H * W
     flops = 2 * px * 576 * 64 + (2 * (px // 4) * 576 * 128 if conv21 else 0)
     wbytes = (1 if int8 else 2) * 576 * (64 + (128 if conv21 else 0))
-    nbytes = px * 64 * 2 + (px // 4) * (128 if conv21 else 64) * 2 + wbytes
+    out_px = px // 4 if pool else px
+    nbytes = px * 64 * 2 + out_px * (128 if conv21 else 64) * 2 + wbytes
     t_ops = flops / (PEAK_INT8_OPS if int8 else PEAK_BF16_FLOPS)
     t_bytes = nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
 def stem_phase(ocr, canv) -> dict:
-    """Kernels #5-#7 vs their plain versions on the served model's conv1_1
+    """Kernels #4-#7 vs their plain versions on the served model's conv1_1
     activation of ``canv``; returns {name: partial kernels-line entry}."""
     from lightly_ocr_tpu_torch.ops import stem
 
@@ -172,14 +223,15 @@ def stem_phase(ocr, canv) -> dict:
     w1 = stem._oihw(p.w1).to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
     w2 = stem._oihw(p.w2).to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
     b1, b2 = p.b1.to(torch.bfloat16), p.b2.to(torch.bfloat16)
-    lib = {"conv12_pool": lambda: stem_library(x0, w1, b1),
+    lib = {"stem_conv": lambda: F.relu(F.conv2d(x0.permute(0, 3, 1, 2), w1, b1, padding=1)),
+           "conv12_pool": lambda: stem_library(x0, w1, b1),
            "conv12_pool_conv21": lambda: stem_library(x0, w1, b1, w2, b2)}
     lib["conv12_pool_conv21_q"] = lib["conv12_pool_conv21"]
     out = {}
-    for name, line_no in (("conv12_pool", 255), ("conv12_pool_conv21", 430),
+    for name, line_no in (("stem_conv", 46), ("conv12_pool", 255), ("conv12_pool_conv21", 430),
                           ("conv12_pool_conv21_q", 597)):
         fn = getattr(stem, "fused_" + name)
-        plain = getattr(stem, name + "_plain")
+        plain = getattr(stem, "fused_stem_conv_plain" if name == "stem_conv" else name + "_plain")
         with torch.inference_mode():
             got = fn(x0, p)
             torch.cuda.synchronize()
@@ -206,7 +258,8 @@ def stem_phase(ocr, canv) -> dict:
             ms = cuda_ms(lambda: fn(x0, p), iters=10)
             plain_ms = cuda_ms(lambda: plain(x0, p), iters=3)
             lib_ms = cuda_ms(lib[name], iters=10)
-        bound, by = stem_bound_ms(B, H, W, name != "conv12_pool", name.endswith("_q"))
+        bound, by = stem_bound_ms(B, H, W, name.startswith("conv12_pool_conv21"),
+                                  name.endswith("_q"), pool=name != "stem_conv")
         log(f"{name} ms: kernel {ms:.3f} plain {plain_ms:.3f} library {lib_ms:.3f} "
             f"(cuDNN bf16 chain{', the bf16 yardstick of the int8 kernel' if name.endswith('_q') else ''}) "
             f"bound {bound:.3f} ({by})")
@@ -222,6 +275,8 @@ def launch_counts() -> dict:
     from lightly_ocr_tpu_torch.ops import cc, seam_tail, stem
 
     return {"seam_tail": seam_tail.seam_tail.launches, "cc": cc.label_components.launches,
+            "tail": seam_tail.tail_scores.launches,
+            "stem_conv": stem.fused_stem_conv.launches,
             "conv12_pool": stem.fused_conv12_pool.launches,
             "conv12_pool_conv21": stem.fused_conv12_pool_conv21.launches,
             "conv12_pool_conv21_q": stem.fused_conv12_pool_conv21_q.launches}
@@ -231,8 +286,9 @@ def reset_launch_counts() -> None:
     from lightly_ocr_tpu_torch.ops import cc, seam_tail, stem
 
     seam_tail.seam_tail.launches = 0
+    seam_tail.tail_scores.launches = 0
     cc.label_components.launches = 0
-    for fn in (stem.fused_conv12_pool, stem.fused_conv12_pool_conv21,
+    for fn in (stem.fused_stem_conv, stem.fused_conv12_pool, stem.fused_conv12_pool_conv21,
                stem.fused_conv12_pool_conv21_q):
         fn.launches = 0
 
@@ -276,10 +332,25 @@ def serve(cfg, det_sd, rec_sd, imgs, dispatches: int, label: str):
 def plan_dispatches(cfg, det_sd, rec_sd, args) -> dict:
     """One dispatch of each other serving plan on the prepared batch
     ``args``, against the bf16 default plan; returns {plan: launches}."""
+    import os
+
     from lightly_ocr_tpu_torch.models.layers import QuantConv
     from lightly_ocr_tpu_torch.serving.batch import BatchedOCR
 
-    def run(c):
+    def run(c, seamk=None):
+        if seamk is None:
+            return dispatch(c)
+        old = os.environ.get("LIGHTLY_OCR_TAIL_SEAMK")
+        os.environ["LIGHTLY_OCR_TAIL_SEAMK"] = seamk
+        try:
+            return dispatch(c)
+        finally:
+            if old is None:
+                del os.environ["LIGHTLY_OCR_TAIL_SEAMK"]
+            else:
+                os.environ["LIGHTLY_OCR_TAIL_SEAMK"] = old
+
+    def dispatch(c):
         ocr = BatchedOCR(c, det_sd, rec_sd, boxes_per_image=BOXES, device="cuda")
         int8 = [0]
         hooks = [m.register_forward_hook(lambda *a: int8.__setitem__(0, int8[0] + 1))
@@ -296,20 +367,39 @@ def plan_dispatches(cfg, det_sd, rec_sd, args) -> dict:
             h.remove()
         return torch.stack([tm, lm]), res, {**launch_counts(), "int8_convs": int8[0]}
 
-    ref_s, ref, _ = run(cfg)
-    plans = {"bf16 tail,cpool": (cfg.replace(fused_stages="tail,cpool"), "conv12_pool"),
-             "bf16 tail,cpool2": (cfg.replace(fused_stages="tail,cpool2"), "conv12_pool_conv21"),
-             "int8 tail,s2d": (cfg.replace(quant_int8=True), "int8_convs")}
+    ref_s, ref, ref_launches = run(cfg)
+    assert ref_launches["seam_tail"] > 0 and ref_launches["tail"] == 0, ref_launches
+    plans = {"bf16 tail,cpool": (cfg.replace(fused_stages="tail,cpool"), None, ("conv12_pool",)),
+             "bf16 tail,cpool2": (cfg.replace(fused_stages="tail,cpool2"), None, ("conv12_pool_conv21",)),
+             "int8 tail,s2d": (cfg.replace(quant_int8=True), None, ("int8_convs",)),
+             "bf16 tail,stem": (cfg.replace(fused_stages="tail,stem"), None,
+                                ("stem_conv", "seam_tail", "cc")),
+             "bf16 tail,s2d SEAMK=0": (cfg, "0", ("tail", "cc"))}
     out = {}
-    for label, (c, needs) in plans.items():
-        sc, res, launches = run(c)
+    for label, (c, seamk, needs) in plans.items():
+        sc, res, launches = run(c, seamk)
         rel = ((sc - ref_s).abs().max() / ref_s.abs().max()).item()
         va, vb = ref["valid"], res["valid"]
         same = va & vb & ((ref["rects"] - res["rects"]).abs().amax(-1) <= 1.0)
         share = same.sum().item() / max(1, (va | vb).sum().item())
         log(f"plan {label}: launches {launches}; vs bf16 tail,s2d: score maxdiff {rel:.4f} of max |score|, "
             f"matching boxes {share:.4f} ({int(va.sum())} vs {int(vb.sum())} valid)")
-        assert launches[needs] > 0, f"plan {label}: {needs} did not run"
+        for k in needs:
+            assert launches[k] > 0, f"plan {label}: {k} did not run"
+        if seamk == "0":
+            # kernel #3 in place of the seam kernel: the same function, so
+            # the default plan's maps hold it by the seam tail's gates
+            # (bit-identity aside: the front's sums run in another order)
+            assert launches["seam_tail"] == 0, f"plan {label}: the seam kernel ran"
+            cs = lambda m: torch.stack([m[0], m[1]], 2)  # noqa: E731  [B, H2, 2, W2]
+            got, want = cs(sc), cs(ref_s)
+            low = torch.quantile(want[:, :, 0].flatten()[:: 97], 0.80).item()
+            link = torch.quantile(want[:, :, 1].flatten()[:: 97], 0.97).item()
+            flips = int((((got[:, :, 0] > low) | (got[:, :, 1] > link))
+                         != ((want[:, :, 0] > low) | (want[:, :, 1] > link))).sum().item())
+            log(f"plan {label}: fg flips {flips} of {want[:, :, 0].numel()} (max {TAIL_FLIPS} x)")
+            assert rel <= TAIL_TOL, f"plan {label}: scores too far from the seam path"
+            assert flips <= TAIL_FLIPS * want[:, :, 0].numel(), f"plan {label}: too many fg flips"
         out[label] = launches
     return out
 
@@ -375,9 +465,9 @@ def stage_times(ocr, imgs) -> dict:
         group = [imgs[i] for i in idxs]
         (canv, gray, inv, ext), out["host_prep"] = host_ms(lambda: ocr.prepare(group, cb, gb))
         if ocr.front is not None:  # conv1_1 prefix, fused kernel, resumed trunk
-            out["stem_prefix"] = cuda_ms(lambda: ocr.det_net.stem_prefix(canv), iters=3)
-            x0 = ocr.det_net.stem_prefix(canv)
-            out["stem_kernel"] = cuda_ms(lambda: ocr.front(x0, ocr.stem), iters=3)
+            out["stem_prefix"] = cuda_ms(lambda: ocr.prefix(canv), iters=3)
+            x0 = ocr.prefix(canv)
+            out[ocr.front.__name__] = cuda_ms(lambda: ocr.front(x0, ocr.stem), iters=3)
             p1 = ocr.front(x0, ocr.stem)
             del x0
             y_lo, t = ocr.det_net.trunk(p1, resume=ocr.resume)
@@ -465,25 +555,7 @@ def main() -> int:
         torch.cuda.synchronize()
     B, H2, W2, _ = t.shape
     assert got.shape == (B, H2, 2, W2) and torch.isfinite(got).all(), "tail output"
-    tail_err = (got - ref).abs().max().item()
-    scale = ref.abs().max().item()
-    region, link = ref[:, :, 0], ref[:, :, 1]
-    q = torch.quantile
-    rs = region.flatten()[:: 97].float()
-    ls = link.flatten()[:: 97].float()
-    low_text = q(rs, 0.80).item()
-    text_thr = q(rs, 0.95).item()
-    link_thr = q(ls, 0.97).item()
-    fg_ref = (region > low_text) | (link > link_thr)
-    fg_got = (got[:, :, 0] > low_text) | (got[:, :, 1] > link_thr)
-    flips = int((fg_ref != fg_got).sum().item())
-    exact = (got == ref).float().mean().item()
-    log(f"seam tail: maxdiff {tail_err:.3e} (max |score| {scale:.3e}, tol {TAIL_TOL} x max); "
-        f"bit-identical {exact:.4f} (min {TAIL_EXACT}); fg flips {flips} of {fg_ref.numel()} "
-        f"(max {TAIL_FLIPS} x) at low_text {low_text:.4g} link {link_thr:.4g}")
-    assert tail_err <= TAIL_TOL * max(scale, 1e-6), "seam tail kernel disagrees with plain version"
-    assert exact >= TAIL_EXACT, "seam tail kernel: too few scores equal the plain version"
-    assert flips <= TAIL_FLIPS * fg_ref.numel(), "seam tail kernel: too many fg-mask flips"
+    tail_err, fg_got = tail_gates("seam tail", got, ref)
     with torch.inference_mode():
         tail_ms = cuda_ms(lambda: seam_tail.seam_tail(ya, t, p), iters=10)
         tail_plain_ms = cuda_ms(lambda: seam_tail.seam_tail_plain(ya, t, p), iters=3)
@@ -491,6 +563,25 @@ def main() -> int:
     tail_bound, tail_by = tail_bound_ms(B, H2, W2)
     log(f"seam tail ms: kernel {tail_ms:.3f} plain {tail_plain_ms:.3f} "
         f"library {tail_lib_ms:.3f} bound {tail_bound:.3f} ({tail_by})")
+    # kernel #3: the chain alone, on the x that the legacy branch forms
+    with torch.inference_mode():
+        x = seam_tail._front(ya, t, p).contiguous()
+        got3 = seam_tail.tail_scores(x, p)
+        torch.cuda.synchronize()
+        ref3 = seam_tail.tail_scores_plain(x, p)
+        torch.cuda.synchronize()
+    assert got3.shape == (B, H2, 2, W2) and torch.isfinite(got3).all(), "tail #3 output"
+    chain_err, _ = tail_gates("tail chain #3", got3, ref3)
+    del got3, ref3
+    with torch.inference_mode():
+        xn = x.permute(0, 3, 1, 2)
+        chain_ms = cuda_ms(lambda: seam_tail.tail_scores(x, p), iters=10)
+        chain_plain_ms = cuda_ms(lambda: seam_tail.tail_scores_plain(x, p), iters=3)
+        chain_lib_ms = cuda_ms(lambda: chain_library(xn, p), iters=10)
+    chain_bound, chain_by = chain_bound_ms(B, H2, W2)
+    log(f"tail chain #3 ms: kernel {chain_ms:.3f} plain {chain_plain_ms:.3f} "
+        f"library {chain_lib_ms:.3f} bound {chain_bound:.3f} ({chain_by})")
+    del x, xn
     log(f"phase seam_tail: {time.perf_counter() - t0:.2f} s")
 
     # -- phase 3: connected components kernel vs plain ----------------------
@@ -518,13 +609,14 @@ def main() -> int:
         f"spiral 1x{H2}x{W2} kernel {cc_spiral_ms:.3f}")
     log(f"phase cc: {time.perf_counter() - t0:.2f} s")
 
-    # -- phase 4: conv1_2 + pool kernels vs plain ----------------------------
+    # -- phase 4: conv1_2 kernels vs plain ------------------------------------
     t0 = time.perf_counter()
     stem_lines = stem_phase(ocr, canv)
     log(f"phase stem: {time.perf_counter() - t0:.2f} s")
 
     # -- phase 5: one dispatch of each other plan ----------------------------
     t0 = time.perf_counter()
+    q = torch.quantile
     with torch.inference_mode():  # the first dispatch's maps set thresholds
         tm, lm = ocr.detector_scores(canv)
         rs, ls = tm.flatten()[:: 97].float(), lm.flatten()[:: 97].float()
@@ -536,10 +628,11 @@ def main() -> int:
     del args
     log(f"phase plans: {time.perf_counter() - t0:.2f} s")
 
-    # -- phase 6: end to end through the server, bf16 default and int8 cpool2
+    # -- phase 6: end to end through the server: bf16 default, bf16 stem, int8 cpool2
     t0 = time.perf_counter()
     model, launches, rps, _ = serve(e2e_cfg, det_sd, rec_sd, imgs, BF16_DISPATCHES, "bf16 tail,s2d")
-    assert launches["seam_tail"] > 0 and launches["cc"] > 0, f"kernels not on the path: {launches}"
+    for k in ("conv12_pool", "seam_tail", "cc"):
+        assert launches[k] > 0, f"{k} not on the bf16 tail,s2d path: {launches}"
     log(f"phase e2e bf16: {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
     stages = stage_times(model.ocr, imgs)
@@ -549,11 +642,25 @@ def main() -> int:
     log(f"phase stages bf16: {time.perf_counter() - t0:.2f} s")
 
     t0 = time.perf_counter()
+    s_cfg = e2e_cfg.replace(fused_stages="tail,stem")
+    model, s_launches, s_rps, _ = serve(s_cfg, det_sd, rec_sd, imgs, BF16_DISPATCHES, "bf16 tail,stem")
+    for k in ("stem_conv", "seam_tail", "cc"):
+        assert s_launches[k] == BF16_DISPATCHES, f"{k} not in every bf16 tail,stem dispatch: {s_launches}"
+    log(f"phase e2e bf16 stem: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    stages = stage_times(model.ocr, imgs)
+    log("stages ms (one b16 dispatch, bf16 tail,stem): "
+        + json.dumps({k: round(v, 3) for k, v in stages.items()}))
+    del model
+    log(f"phase stages bf16 stem: {time.perf_counter() - t0:.2f} s")
+
+    t0 = time.perf_counter()
     q_cfg = e2e_cfg.replace(quant_int8=True, fused_stages="tail,cpool2")
     model, q_launches, q_rps, _ = serve(q_cfg, det_sd, rec_sd, imgs, DISPATCHES, "int8 tail,cpool2")
     for k in ("conv12_pool_conv21_q", "seam_tail", "cc"):
         assert q_launches[k] > 0, f"{k} not on the int8 cpool2 path: {q_launches}"
-    log(f"e2e int8 tail,cpool2: {q_rps:.2f} receipts/s on {smi} (bf16 tail,s2d: {rps:.2f})")
+    log(f"e2e int8 tail,cpool2: {q_rps:.2f} receipts/s on {smi} (bf16 tail,s2d: {rps:.2f}, "
+        f"bf16 tail,stem: {s_rps:.2f})")
     log(f"phase e2e int8: {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
     stages = stage_times(model.ocr, imgs)
@@ -563,9 +670,12 @@ def main() -> int:
     log(f"phase stages int8: {time.perf_counter() - t0:.2f} s")
 
     # launches: each kernel's count over the timed run of the path that
-    # drives it (the bf16 default plan for the seam tail and CC, the int8
-    # cpool2 plan for #7, one dispatch of bf16 cpool / cpool2 for #5 / #6)
+    # drives it (the bf16 default plan for the seam tail and CC, the bf16
+    # stem plan for #4, the int8 cpool2 plan for #7, one dispatch of bf16
+    # cpool / cpool2 / SEAMK=0 for #5 / #6 / #3)
     paths = {"seam_tail": ("bf16 tail,s2d", launches), "cc": ("bf16 tail,s2d", launches),
+             "tail": ("bf16 tail,s2d SEAMK=0", plan_launches["bf16 tail,s2d SEAMK=0"]),
+             "stem_conv": ("bf16 tail,stem", s_launches),
              "conv12_pool": ("bf16 tail,cpool", plan_launches["bf16 tail,cpool"]),
              "conv12_pool_conv21": ("bf16 tail,cpool2", plan_launches["bf16 tail,cpool2"]),
              "conv12_pool_conv21_q": ("int8 tail,cpool2", q_launches)}
@@ -582,6 +692,12 @@ def main() -> int:
          "max_abs_err": cc_err,
          "ms": cc_ms, "plain_ms": cc_plain_ms, "bound_ms": cc_bound,
          "bound_by": "bytes", "library_ms": None},
+        {"name": "tail_chain", "route": "cuda",
+         "source": "lightly_ocr_tpu_torch/csrc/seam_tail.cu",
+         "replaces": "lightly_ocr_tpu/ops/pallas_tail.py:166",
+         "max_abs_err": chain_err,
+         "ms": chain_ms, "plain_ms": chain_plain_ms, "bound_ms": chain_bound,
+         "bound_by": chain_by, "library_ms": chain_lib_ms},
         *stem_lines.values(),
     ]
     for k, key in zip(kernels, paths):

@@ -1,9 +1,11 @@
 """Typed configuration of the PyTorch port (a copy of the JAX package's).
 
 The same frozen dataclass, field for field, as ``lightly_ocr_tpu/config.py``
-so one YAML file configures either package.  The fields that steer the TPU
-serving plan (``fused_stages``, ``fused_impl``, ``monolith``, ``cpool_pool``,
-``mesh_*``) are kept for file compatibility and are not read by the port.
+so one YAML file configures either package.  ``fused_stages`` picks the
+serving plan of ``serving/batch.py::BatchedOCR``, as in the JAX package.
+The other fields that steer the TPU serving plan (``fused_impl``,
+``monolith``, ``cpool_pool``, ``mesh_*``) are kept for file compatibility
+and are not read by the port.
 ``yaml`` is imported inside :func:`load_config` only, so the serving path
 imports without it.
 """

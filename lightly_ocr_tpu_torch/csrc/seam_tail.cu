@@ -1,7 +1,11 @@
 // Seam tail of the CRAFT detector for Hopper (sm_90a): upconv4 + conv_cls.
 //
-// Replaces lightly_ocr_tpu/ops/pallas_tail.py::_seam_kernel (the TPU kernel
-// behind fused_tail_scores_cs_seam).  Inputs, all NHWC and contiguous:
+// Replaces two TPU kernels of lightly_ocr_tpu/ops/pallas_tail.py:
+//   _seam_kernel (#1), behind fused_tail_scores_cs_seam: seam_tail_launch;
+//   _tail_kernel (#3), behind fused_tail_scores_cs and the legacy branch of
+//     fused_tail_scores_cs_seam: tail_launch, the same chain from a formed
+//     64-channel activation x [B, H2, W2, 64] bf16 (launches 2-5 below).
+// seam_tail_launch's inputs, all NHWC and contiguous:
 //   t   [B, H2, W2, 128] bf16  slice1 skip
 //   ya  [B, H2/2, W2/2, 64] f32 quarter-res product y_lo @ k1[:64]
 //   folded weights (bf16) and biases (f32) from ops/seam_tail.py tail_params
@@ -23,7 +27,8 @@
 // blocks per SM, so the weights are staged into shared memory once per block.
 // Bound on an H100 at b16 480x320: ~245 GFLOP of bf16 products (0.25 ms at
 // 989 TFLOP/s) against ~0.8 GB of compulsory traffic (0.24 ms at 3.35 TB/s),
-// so it is compute-bound for a tensor-core kernel; this version runs the
+// so it is compute-bound for a tensor-core kernel (tail_launch: 205 GFLOP,
+// 0.21 ms, against 0.34 GB, 0.10 ms); this version runs the
 // products as f32 FMAs on the CUDA cores and keeps the intermediates in
 // device memory, so it sits well above that bound.  Tensor cores (wgmma) and
 // one fused kernel with a halo are the next step.
@@ -280,6 +285,26 @@ cudaError_t launch_conv(const bf16* x, const bf16* w, const float* bias, bf16* y
   return cudaGetLastError();
 }
 
+// upconv4 3x3 64->32 and conv_cls from x [B,H2,W2,64]: four launches.
+cudaError_t tail_chain(const bf16* x, const bf16* wa, const float* ba, const bf16* w0,
+                       const float* b0, const bf16* w2, const float* b2, const bf16* w4,
+                       const float* b4, const bf16* w6, const float* b6, const bf16* w8,
+                       const float* b8, bf16* bufa, bf16* bufb, float* out, int B, int H2,
+                       int W2, cudaStream_t s) {
+  const bf16* none = nullptr;
+  const float* nonef = nullptr;
+  cudaError_t err = launch_conv<64, 32, false>(x, wa, ba, bufa, none, nonef, none, nonef,
+                                               nullptr, B, H2, W2, s);
+  if (err != cudaSuccess) return err;
+  err = launch_conv<32, 32, false>(bufa, w0, b0, bufb, none, nonef, none, nonef, nullptr,
+                                   B, H2, W2, s);
+  if (err != cudaSuccess) return err;
+  err = launch_conv<32, 32, false>(bufb, w2, b2, bufa, none, nonef, none, nonef, nullptr,
+                                   B, H2, W2, s);
+  if (err != cudaSuccess) return err;
+  return launch_conv<32, 16, true>(bufa, w4, b4, nullptr, w6, b6, w8, b8, out, B, H2, W2, s);
+}
+
 }  // namespace
 
 // Runs the whole tail on `stream`; xs [B,H2,W2,64], bufa/bufb [B,H2,W2,32]
@@ -293,24 +318,28 @@ extern "C" int seam_tail_launch(
     void* xs, void* bufa, void* bufb, void* out, int B, int H2, int W2,
     void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bf16* none = nullptr;
-  const float* nonef = nullptr;
   seam_front<<<grid_for((long long)B * H2 * W2), kThreads, 0, s>>>(
       (const bf16*)t, (const float*)ya, (const bf16*)k1b, (const float*)b1,
       (bf16*)xs, B, H2, W2);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  err = launch_conv<64, 32, false>((const bf16*)xs, (const bf16*)wa, (const float*)ba,
-                                   (bf16*)bufa, none, nonef, none, nonef, nullptr, B, H2, W2, s);
-  if (err != cudaSuccess) return err;
-  err = launch_conv<32, 32, false>((const bf16*)bufa, (const bf16*)w0, (const float*)b0,
-                                   (bf16*)bufb, none, nonef, none, nonef, nullptr, B, H2, W2, s);
-  if (err != cudaSuccess) return err;
-  err = launch_conv<32, 32, false>((const bf16*)bufb, (const bf16*)w2, (const float*)b2,
-                                   (bf16*)bufa, none, nonef, none, nonef, nullptr, B, H2, W2, s);
-  if (err != cudaSuccess) return err;
-  return launch_conv<32, 16, true>((const bf16*)bufa, (const bf16*)w4, (const float*)b4,
-                                   nullptr, (const bf16*)w6, (const float*)b6,
-                                   (const bf16*)w8, (const float*)b8, (float*)out,
-                                   B, H2, W2, s);
+  return tail_chain((const bf16*)xs, (const bf16*)wa, (const float*)ba, (const bf16*)w0,
+                    (const float*)b0, (const bf16*)w2, (const float*)b2, (const bf16*)w4,
+                    (const float*)b4, (const bf16*)w6, (const float*)b6, (const bf16*)w8,
+                    (const float*)b8, (bf16*)bufa, (bf16*)bufb, (float*)out, B, H2, W2, s);
+}
+
+// #3: the chain alone from a formed x [B,H2,W2,64] bf16 (the TPU kernel's
+// input after its XLA 1x1); bufa/bufb [B,H2,W2,32] bf16 scratch, out
+// [B,H2,2,W2] f32.  H2 and W2 must be even.
+extern "C" int tail_launch(
+    const void* x, const void* wa, const void* ba, const void* w0, const void* b0,
+    const void* w2, const void* b2, const void* w4, const void* b4,
+    const void* w6, const void* b6, const void* w8, const void* b8,
+    void* bufa, void* bufb, void* out, int B, int H2, int W2, void* stream) {
+  return tail_chain((const bf16*)x, (const bf16*)wa, (const float*)ba, (const bf16*)w0,
+                    (const float*)b0, (const bf16*)w2, (const float*)b2, (const bf16*)w4,
+                    (const float*)b4, (const bf16*)w6, (const float*)b6, (const bf16*)w8,
+                    (const float*)b8, (bf16*)bufa, (bf16*)bufb, (float*)out, B, H2, W2,
+                    static_cast<cudaStream_t>(stream));
 }

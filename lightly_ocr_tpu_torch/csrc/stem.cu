@@ -1,14 +1,17 @@
 // Fused conv1_2 + 2x2 pool detector front for Hopper (sm_90a).
 //
-// Replaces three TPU kernels of lightly_ocr_tpu/ops/pallas_stem.py:
+// Replaces four TPU kernels of lightly_ocr_tpu/ops/pallas_stem.py:
+//   _stem_kernel              (#4) conv1_2 + BN + ReLU at full resolution
 //   _conv_pool_kernel         (#5) conv1_2 + BN + ReLU + 2x2 max pool
 //   _conv_pool_conv_kernel    (#6) #5, then conv2_1 + BN + ReLU
 //   _conv_pool_conv_q_kernel  (#7) the w8a8 form of #6
-// All three start with the same 3x3 64->64 convolution (VGG conv1_2) on the
-// conv1_1 activation x0 [B, H, W, 64] NHWC and never write its full-
+// All four start with the same 3x3 64->64 convolution (VGG conv1_2) on the
+// conv1_1 activation x0 [B, H, W, 64] NHWC.  #5-#7 never write its full-
 // resolution output to device memory (1.26 GB of bf16 at b16 960x640): the
 // 2x2 pool runs in the epilogue and only the pooled map [B, H/2, W/2, 64] is
-// stored.  BN is folded into the weights by ops/stem.py.
+// stored.  #4 is the same conv without the pool and writes that full-
+// resolution map, which the trunk pools.  BN is folded into the weights by
+// ops/stem.py.
 //
 // One templated implicit-GEMM kernel, conv3x3_mma, does every convolution:
 // M = output pixels, N = output channels, K = 9 taps x 64 input channels.
@@ -20,6 +23,7 @@
 // s8 x s8 -> s32.  The epilogue goes through a per-warp staging tile.
 //
 // Launches (extern "C", below):
+//   #4  conv12_bf16                 x0 bf16 -> full-resolution bf16
 //   #5  conv12_pool_bf16            x0 bf16 -> pooled bf16
 //   #6  conv12_pool_bf16, conv21_bf16  (conv2_1 on the bf16 pooled map)
 //   #7  quantize_per_sample_bf16 (x0 -> xq int8 and sx, per sample),
@@ -31,14 +35,19 @@
 //       included, with the reading block's s2).
 // Rounding follows the TPU kernels: bf16 operands, f32 sums, + f32 bias,
 // ReLU, pool in f32, one cast.  The int8 epilogues round as XLA runs the JAX
-// kernel: y * (s * sw) + b is one FMA (__fmaf_rn after __fmul_rn(s, sw)) and
+// kernel: y * (s * sw) + b is one FMA (__fmaf_rn after __fmul_rn(s, sw)),
 // the requant multiplies by the correctly rounded reciprocal of s2, then
-// rounds half to even; so #7 matches its plain PyTorch version (ops/stem.py)
-// bit for bit: every int8 product and int32 sum is exact.
+// rounds half to even, and the per-sample scale sx = max(amax, 1e-12) / 127
+// is a multiply by the float constant 1/127 (XLA's rewrite of a division by
+// a constant in the jitted wrapper; s2, taken in the TPU kernel, is a true
+// division); so #7 matches its plain PyTorch version (ops/stem.py) bit for
+// bit: every int8 product and int32 sum is exact.
 //
 // Bound on an H100 at b16 960x640: conv1_2 is 0.72 TFLOP and conv2_1 0.36
-// TFLOP, so all three are bound by tensor-core operations (about 0.73 ms for
-// #5 and 1.1 ms for #6 in bf16, 0.55 ms for #7 at the int8 rate).  This first
+// TFLOP, so #5-#7 are bound by tensor-core operations (about 0.73 ms for
+// #5 and 1.1 ms for #6 in bf16, 0.55 ms for #7 at the int8 rate).  #4 moves
+// 2.5 GB (x0 in, the full-resolution map out), 0.75 ms at 3.35 TB/s, just
+// above its 0.73 ms of operations: it is bound by bytes.  This first
 // version uses mma.sync through wmma with no copy/compute overlap (one or
 // two blocks per SM), so it sits well above that bound; wgmma with a TMA
 // ring is the next step.
@@ -58,6 +67,8 @@ constexpr int kCin = 64;
 constexpr int kK = 9 * kCin;
 
 enum In { kInBf16 = 0, kInS8 = 1, kInF32Quant = 2 };
+
+constexpr float kRcp127 = 1.0f / 127.0f;  // correctly rounded float, as XLA folds it
 
 // Shared-memory layouts.  wmma wants every fragment's first element 32-byte
 // aligned.  bf16: A is [pixel][80] (160 B a pixel), B is [576][COUT + 8].
@@ -381,13 +392,13 @@ sample_amax_kernel(const bf16* __restrict__ x, float* __restrict__ amax, long lo
   }
 }
 
-// sx[b] = max(amax[b], 1e-12) / 127; xq = clip(round(x / sx), -127, 127),
+// sx[b] = max(amax[b], 1e-12) * (1/127); xq = clip(round(x / sx), -127, 127),
 // a true division rounded half to even (QuantConv's convention).
 __global__ void __launch_bounds__(256)
 quantize_kernel(const bf16* __restrict__ x, const float* __restrict__ amax,
                 signed char* __restrict__ xq, float* __restrict__ sx, long long n) {
   const int b = blockIdx.y;
-  const float s = __fdiv_rn(fmaxf(amax[b], 1e-12f), 127.f);
+  const float s = __fmul_rn(fmaxf(amax[b], 1e-12f), kRcp127);
   if (blockIdx.x == 0 && threadIdx.x == 0) sx[b] = s;
   const uint4* p = reinterpret_cast<const uint4*>(x + (size_t)b * n);
   uint2* q = reinterpret_cast<uint2*>(xq + (size_t)b * n);
@@ -422,6 +433,16 @@ extern "C" int quantize_per_sample_bf16(const void* x, void* amax, void* xq, voi
   quantize_kernel<<<grid, 256, 0, s>>>((const bf16*)x, (const float*)amax, (signed char*)xq,
                                        (float*)sx, n);
   return cudaGetLastError();
+}
+
+// #4: x0 bf16 [B,H,W,64], w [576,64] bf16 (tap-major K), b [64] f32 ->
+// bf16 [B,H,W,64] of relu(conv3x3(x0) + b), zero padding.  Any H; the
+// column tiles of 128 are masked, so any W (the wrapper asks W % 8 == 0, as
+// the TPU kernel does).
+extern "C" int conv12_bf16(const void* x, const void* w, const void* b, void* out,
+                           int B, int H, int W, void* stream) {
+  return launch<64, 1, false, kInBf16, false>(x, w, (const float*)b, nullptr, nullptr, out,
+                                               B, H, W, 1, (cudaStream_t)stream);
 }
 
 // #5 and the first half of #6: x0 bf16 [B,H,W,64], w [576,64] bf16 (tap-

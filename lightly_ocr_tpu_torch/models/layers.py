@@ -17,7 +17,10 @@ class BatchNorm2d(nn.Module):
     """Inference BatchNorm (eps 1e-5) with the torch parameter names.
 
     Unlike ``nn.BatchNorm2d`` it has no ``num_batches_tracked`` buffer: the
-    port never trains, and the JAX tree has no such leaf."""
+    port never trains, and the JAX tree has no such leaf.  As flax's
+    ``BatchNorm``, it keeps its parameters in float32 whatever the compute
+    dtype (:func:`to_serving`), computes in float32 and rounds once to the
+    input's dtype."""
 
     def __init__(self, num_features: int, eps: float = 1e-5):
         super().__init__()
@@ -162,7 +165,10 @@ class QuantConv(nn.Conv2d):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.quantized:
-            return super().forward(x)
+            # flax's Conv: the product rounded to the compute dtype, then
+            # the bias added in that dtype
+            y = self._conv_forward(x, self.weight, None)
+            return y if self.bias is None else y + self.bias[:, None, None]
         wq, sw = self._codes if self._codes is not None else self._quantized_weight()
         xq, sx = quantize_per_sample(x.permute(0, 2, 3, 1))  # NHWC
         y = int8_conv(xq, wq, self.kernel_size, self.stride, self.padding, self.dilation)
@@ -175,12 +181,18 @@ class QuantConv(nn.Conv2d):
 
 def to_serving(module: nn.Module, device, dtype, memory_format=torch.contiguous_format):
     """``module.to(device)``, every :class:`QuantConv` keeps its float32
-    master (:meth:`QuantConv.keep_master`), then ``.to(dtype)``."""
+    master (:meth:`QuantConv.keep_master`), then ``.to(dtype)`` for all but
+    the :class:`BatchNorm2d` layers, which stay float32."""
     module.to(device)
     for m in module.modules():
         if isinstance(m, QuantConv):
             m.keep_master()
-    return module.to(dtype).to(memory_format=memory_format)
+    norms = [m for m in module.modules() if isinstance(m, BatchNorm2d)]
+    kept = [{k: t.float().clone() for k, t in m.state_dict().items()} for m in norms]
+    module.to(dtype).to(memory_format=memory_format)
+    for m, state in zip(norms, kept):
+        m.float().load_state_dict(state)
+    return module
 
 
 def max_pool(x: torch.Tensor, kernel, stride, padding=0) -> torch.Tensor:

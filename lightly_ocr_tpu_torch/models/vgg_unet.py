@@ -47,11 +47,13 @@ _VGG_SLICES = {
 
 
 # slice1 resumed after a fused stem kernel (``vgg_unet.py`` of the JAX
-# package): after conv1_2 + pool (``fused_conv12_pool``), and after conv1_2
-# + pool + conv2_1 (``fused_conv12_pool_conv21[_q]``).  The prefix that feeds
+# package): after the full-resolution conv1_2 (``fused_stem_conv``, the JAX
+# package's ``_SLICE1_POST``), after conv1_2 + pool (``fused_conv12_pool``),
+# and after conv1_2 + pool + conv2_1 (``fused_conv12_pool_conv21[_q]``).  The prefix that feeds
 # those kernels is conv1_1 + BN + ReLU (:meth:`VGG_UNet.stem_prefix`).
 _SLICE1_PREFIX = _VGG_SLICES["slice1"][:2]
 _SLICE1_RESUME = {
+    "stem": _VGG_SLICES["slice1"][4:],
     "pool": _VGG_SLICES["slice1"][5:],
     "c21": _VGG_SLICES["slice1"][7:],
 }
@@ -236,7 +238,9 @@ class VGG_UNet(nn.Module):
         :func:`lightly_ocr_tpu_torch.ops.seam_tail.seam_tail` (the JAX
         package's ``VGG_UNetTrunk(seam=True)``).
 
-        ``resume="pool"`` takes instead the conv1_2 + pool activation
+        ``resume="stem"`` takes instead the conv1_2 activation ``[B, H, W,
+        64]`` and resumes at pool1 (``from_stem=True``);
+        ``resume="pool"`` takes the conv1_2 + pool activation
         ``[B, H/2, W/2, 64]`` and resumes at conv2_1 (``from_pool=True``);
         ``resume="c21"`` takes the conv2_1 activation ``[B, H/2, W/2, 128]``
         and resumes at conv2_2 (``from_c21=True``)."""

@@ -1,7 +1,9 @@
-"""The detector's seam tail: upconv4 + conv_cls from the trunk's seam pair.
+"""The detector's tail: upconv4 + conv_cls, from the seam pair or from x.
 
 Port of ``lightly_ocr_tpu/ops/pallas_tail.py`` (``fused_tail_scores_cs_seam``
-and its kernel ``_seam_kernel``).  Given the trunk's pre-concat pair
+with its kernel ``_seam_kernel``, and ``fused_tail_scores_cs``,
+``fused_tail_scores`` and the legacy branch of ``fused_tail_scores_cs_seam``
+with their kernel ``_tail_kernel``).  Given the trunk's pre-concat pair
 ``(y_lo [B, H/4, W/4, 64], t [B, H/2, W/2, 128])`` it computes
 
     xs = bf16(relu(up2x(y_lo @ k1[:64]) + t @ k1[64:] + b1))   upconv4 1x1+BN
@@ -17,13 +19,24 @@ kernel, as the JAX package runs it in XLA.
 
 :func:`seam_tail` is the kernel's wrapper: a CPU tensor takes the plain
 version :func:`seam_tail_plain`; a CUDA tensor launches the CUDA kernel of
-``csrc/seam_tail.cu`` or raises.  The plain version computes in the dtype of
-``t``: bf16 inputs round at the kernel's cast points, float32 inputs (the
-CPU parity tests) do not round at all.
+``csrc/seam_tail.cu`` or raises.  :func:`tail_scores` (plain version
+:func:`tail_scores_plain`) is the same for kernel #3, the chain after ``xs``
+from a formed ``x [B, H/2, W/2, 64]``: the TPU package's ``_scores_from_x``.
+The plain versions compute in the dtype of ``t`` (or ``x``): bf16 inputs
+round at the kernel's cast points, float32 inputs (the CPU parity tests) do
+not round at all.
+
+The legacy branch of :func:`fused_tail_scores_cs_seam` forms ``x`` with the
+front's products in PyTorch and runs kernel #3.  It is taken, as in the JAX
+package, when ``LIGHTLY_OCR_TAIL_SEAMK=0`` (read at call time) or when
+``y_lo`` is not half the resolution of ``t``; the JAX package's third
+reason, a canvas without a seam row split, does not apply, because the
+port's seam kernel takes every even size.
 """
 from __future__ import annotations
 
 import ctypes
+import os
 from typing import NamedTuple
 
 import torch
@@ -91,23 +104,27 @@ def tail_params(det_net, dtype: torch.dtype = torch.bfloat16) -> TailParams:
     )
 
 
-def seam_tail_plain(ya: torch.Tensor, t: torch.Tensor,
-                    p: TailParams) -> torch.Tensor:
-    """Plain PyTorch version of the kernel: ``ya`` [B, H/4, W/4, 64] f32,
-    ``t`` [B, H/2, W/2, 128] -> [B, H/2, 2, W/2] f32."""
-    if t.dtype == torch.float32:
-        def q(x):
-            return x
-    else:
-        def q(x):
-            return x.to(t.dtype).float()
-
+def _front(ya: torch.Tensor, t: torch.Tensor, p: TailParams) -> torch.Tensor:
+    """``xs = relu(up(ya) + t @ k1b + b1)`` in float32, cast to the dtype of
+    ``t``: ``[B, H/2, W/2, 64]`` NHWC (``up`` resizes ``ya`` to ``t``'s
+    size, bilinear with half-pixel centres)."""
     B, H2, W2, _ = t.shape
     up = F.interpolate(ya.permute(0, 3, 1, 2).float(), size=(H2, W2),
                        mode="bilinear", align_corners=False)
     tn = t.permute(0, 3, 1, 2).float()
     yb = F.conv2d(tn, p.k1b.float().t()[:, :, None, None])
-    x = q(F.relu(up + yb + p.b1[:, None, None]))
+    return F.relu(up + yb + p.b1[:, None, None]).to(t.dtype).permute(0, 2, 3, 1)
+
+
+def tail_scores_plain(x: torch.Tensor, p: TailParams) -> torch.Tensor:
+    """Plain PyTorch version of kernel #3: ``x`` [B, H/2, W/2, 64] ->
+    [B, H/2, 2, W/2] f32, rounding to the dtype of ``x`` after every ReLU."""
+    dtype = x.dtype
+
+    def q(y):
+        return y if dtype == torch.float32 else y.to(dtype).float()
+
+    x = x.permute(0, 3, 1, 2).float()
     for wk, bk in ((p.wa, p.ba), (p.w0, p.b0), (p.w2, p.b2), (p.w4, p.b4)):
         oihw = wk.float().reshape(3, 3, wk.shape[1], wk.shape[2]).permute(3, 2, 0, 1)
         x = q(F.relu(F.conv2d(x, oihw, bk, padding=1)))
@@ -116,8 +133,25 @@ def seam_tail_plain(ya: torch.Tensor, t: torch.Tensor,
     return o.permute(0, 2, 1, 3).contiguous()  # [B, H2, 2, W2]
 
 
+def seam_tail_plain(ya: torch.Tensor, t: torch.Tensor,
+                    p: TailParams) -> torch.Tensor:
+    """Plain PyTorch version of the kernel: ``ya`` [B, H/4, W/4, 64] f32,
+    ``t`` [B, H/2, W/2, 128] -> [B, H/2, 2, W/2] f32."""
+    return tail_scores_plain(_front(ya, t, p), p)
+
+
 _VP = ctypes.c_void_p
-_SIG = {"seam_tail_launch": [_VP] * 20 + [ctypes.c_int] * 3 + [_VP]}
+_SIG = {"seam_tail_launch": [_VP] * 20 + [ctypes.c_int] * 3 + [_VP],
+        "tail_launch": [_VP] * 16 + [ctypes.c_int] * 3 + [_VP]}
+_CHAIN = ("wa", "ba", "w0", "b0", "w2", "b2", "w4", "b4", "w6", "b6", "w8", "b8")
+
+
+def _check_params(name: str, p: TailParams, fields, device) -> None:
+    for f in fields:
+        x = getattr(p, f)
+        want = torch.float32 if f.startswith("b") or f == "k1a" else torch.bfloat16
+        if x.dtype != want or x.device != device or not x.is_contiguous():
+            raise ValueError(f"{name}: param {f} must be contiguous {want} on {device}, got {x.dtype} on {x.device}")
 
 
 def seam_tail(ya: torch.Tensor, t: torch.Tensor, p: TailParams) -> torch.Tensor:
@@ -136,10 +170,7 @@ def seam_tail(ya: torch.Tensor, t: torch.Tensor, p: TailParams) -> torch.Tensor:
     if (ya.shape != (B, H2 // 2, W2 // 2, 64) or ya.dtype != torch.float32
             or not ya.is_contiguous() or ya.device != t.device):
         raise ValueError(f"seam_tail: ya must be contiguous f32 [B, H2/2, W2/2, 64] on {t.device}, got {ya.dtype} {tuple(ya.shape)}")
-    for name, x in p._asdict().items():
-        want = torch.float32 if name.startswith("b") or name == "k1a" else torch.bfloat16
-        if x.dtype != want or x.device != t.device or not x.is_contiguous():
-            raise ValueError(f"seam_tail: param {name} must be contiguous {want} on {t.device}, got {x.dtype} on {x.device}")
+    _check_params("seam_tail", p, p._fields, t.device)
     lib = native.load("seam_tail", _SIG)
     xs = torch.empty((B, H2, W2, 64), dtype=torch.bfloat16, device=t.device)
     bufa = torch.empty((B, H2, W2, 32), dtype=torch.bfloat16, device=t.device)
@@ -155,13 +186,63 @@ def seam_tail(ya: torch.Tensor, t: torch.Tensor, p: TailParams) -> torch.Tensor:
     return out
 
 
+def tail_scores(x: torch.Tensor, p: TailParams) -> torch.Tensor:
+    """Kernel #3's wrapper.  CPU tensors take :func:`tail_scores_plain`;
+    CUDA tensors launch ``tail_launch`` of ``csrc/seam_tail.cu`` (contiguous
+    bf16 ``x`` [B, H2, W2, 64], H2 and W2 even) or raise."""
+    if x.device.type == "cpu":
+        return tail_scores_plain(x, p)
+    if x.device.type != "cuda":
+        raise ValueError(f"tail_scores: unsupported device {x.device}")
+    if x.ndim != 4 or x.shape[3] != 64 or x.dtype != torch.bfloat16 or not x.is_contiguous():
+        raise ValueError(f"tail_scores: x must be contiguous bf16 [B, H2, W2, 64], got {x.dtype} {tuple(x.shape)}")
+    B, H2, W2, _ = x.shape
+    if H2 % 2 or W2 % 2:
+        raise ValueError(f"tail_scores: H2, W2 must be even, got {H2}x{W2}")
+    _check_params("tail_scores", p, _CHAIN, x.device)
+    lib = native.load("seam_tail", _SIG)
+    bufa = torch.empty((B, H2, W2, 32), dtype=torch.bfloat16, device=x.device)
+    bufb = torch.empty_like(bufa)
+    out = torch.empty((B, H2, 2, W2), dtype=torch.float32, device=x.device)
+    args = [x, *(getattr(p, f) for f in _CHAIN), bufa, bufb, out]
+    err = lib.tail_launch(*[native.ptr(a) for a in args], B, H2, W2, native.stream(x.device))
+    native.check(err, "tail_scores")
+    tail_scores.launches += 1
+    return out
+
+
 seam_tail.launches = 0
+tail_scores.launches = 0
+
+
+def fused_tail_scores_cs(p: TailParams, y192: torch.Tensor) -> torch.Tensor:
+    """The concat-fed tail: ``[B, H/2, W/2, 192]`` (``cat([up(y_lo), t])``)
+    -> channels-second ``[B, H/2, 2, W/2]`` f32 scores.  The K=192 upconv4
+    1x1 runs as a float32 ``torch.matmul`` of compute-dtype operands (the
+    JAX package runs it in XLA), then bias, ReLU and one cast form ``x`` for
+    kernel #3.  Exactly ``W/2`` columns, where the TPU kernel pads."""
+    dtype = p.k1b.dtype
+    k1 = torch.cat([p.k1a, p.k1b.float()])
+    x = torch.matmul(y192.to(dtype).float(), k1)
+    return tail_scores(F.relu(x + p.b1).to(dtype).contiguous(), p)
+
+
+def fused_tail_scores(p: TailParams, y192: torch.Tensor) -> torch.Tensor:
+    """Channels-last form of :func:`fused_tail_scores_cs`:
+    ``[B, H/2, W/2, 2]``."""
+    return fused_tail_scores_cs(p, y192).permute(0, 1, 3, 2)
 
 
 def fused_tail_scores_cs_seam(p: TailParams, y_lo: torch.Tensor,
                               t: torch.Tensor) -> torch.Tensor:
     """Seam pair -> channels-second ``[B, H/2, 2, W/2]`` f32 scores: the
     quarter-resolution ``ya`` product (float32 matmul of compute-dtype
-    values), then the tail kernel."""
+    values), then the seam kernel; or, on the legacy branch of the module
+    docstring, ``x`` formed from ``ya`` and ``t`` in PyTorch, then
+    kernel #3."""
     ya = torch.matmul(y_lo.to(t.dtype).float(), p.k1a).contiguous()
+    H2, W2 = t.shape[1:3]
+    if (os.environ.get("LIGHTLY_OCR_TAIL_SEAMK", "1") == "0"
+            or y_lo.shape[1:3] != (H2 // 2, W2 // 2)):
+        return tail_scores(_front(ya, t, p).contiguous(), p)
     return seam_tail(ya, t.contiguous(), p)

@@ -1,11 +1,13 @@
-"""The fused conv1_2 + pool detector front (kernels of ``csrc/stem.cu``).
+"""The fused conv1_2 detector front (kernels of ``csrc/stem.cu``).
 
-Port of the three conv-pool kernels of ``lightly_ocr_tpu/ops/pallas_stem.py``
-(``fused_conv12_pool``, ``fused_conv12_pool_conv21`` and
-``fused_conv12_pool_conv21_q``).  Each takes the conv1_1 activation ``x0``
-``[B, H, W, 64]`` NHWC (:meth:`VGG_UNet.stem_prefix`) and computes, with BN
-folded into the convs (:func:`stem_params`):
+Port of the four kernels of ``lightly_ocr_tpu/ops/pallas_stem.py``
+(``fused_stem_conv``, ``fused_conv12_pool``, ``fused_conv12_pool_conv21``
+and ``fused_conv12_pool_conv21_q``).  Each takes the conv1_1 activation
+``x0`` ``[B, H, W, 64]`` NHWC (:meth:`VGG_UNet.stem_prefix`) and computes,
+with BN folded into the convs (:func:`stem_params`):
 
+* :func:`fused_stem_conv`: ``relu(conv1_2(x0) + b1)`` at full resolution ->
+  ``[B, H, W, 64]`` bf16 (the ``stem`` plan; the trunk pools it);
 * :func:`fused_conv12_pool`: ``pool2x2(relu(conv1_2(x0) + b1))`` ->
   ``[B, H/2, W/2, 64]`` bf16;
 * :func:`fused_conv12_pool_conv21`: that pooled map cast to bf16, then
@@ -19,8 +21,12 @@ folded into the convs (:func:`stem_params`):
   conv2_1 dequantized by ``s2 * sw2``, bias, ReLU -> bf16.
 
   Rounding of #7 is that of the JAX kernel as XLA runs it: each dequant
-  ``y * s + b`` is one fused multiply-add (one rounding) and the requant
-  multiplies by the float32 reciprocal of ``s2``.  (Rounded apart, with a
+  ``y * s + b`` is one fused multiply-add (one rounding), the requant
+  multiplies by the float32 reciprocal of ``s2``, and the scales that the
+  jitted JAX wrapper takes outside its kernel (``sx``, ``sw1``, ``sw2``)
+  are ``max(amax, 1e-12)`` times the float32 constant ``1 / 127``, which is
+  how XLA simplifies a division by a constant (:func:`scale127`); ``s2``,
+  taken inside the kernel, is a true division.  (Rounded apart, with a
   true division, an int8 code flips at a .5 boundary about once per 10^5
   values against the JAX kernel.)  The plain version computes the FMA
   exactly in float64 and the CUDA kernel with ``__fmaf_rn``, so the two
@@ -28,7 +34,7 @@ folded into the convs (:func:`stem_params`):
 
 Each wrapper takes its plain PyTorch version (``*_plain``) for a CPU tensor,
 and for a CUDA tensor launches the kernels or raises.  The trunk resumes
-after them through ``VGG_UNet.trunk(..., resume="pool" | "c21")``.
+after them through ``VGG_UNet.trunk(..., resume="stem" | "pool" | "c21")``.
 """
 from __future__ import annotations
 
@@ -41,8 +47,7 @@ import torch.nn.functional as F
 from lightly_ocr_tpu_torch.models.layers import (
     int8_conv,
     int8_scale,
-    quantize_per_sample,
-    quantize_weight,
+    quantize_with,
     tap_major,
 )
 from lightly_ocr_tpu_torch.ops import native
@@ -50,6 +55,8 @@ from lightly_ocr_tpu_torch.ops.seam_tail import fold_bn
 
 
 class StemParams(NamedTuple):
+    w0: torch.Tensor  # [64, 3, 3, 3] bf16 OIHW, conv1_1 + BN folded
+    b0: torch.Tensor  # [64] f32
     w1: torch.Tensor  # [576, 64] bf16, conv1_2 + BN folded, K tap-major
     b1: torch.Tensor  # [64] f32
     w2: torch.Tensor  # [576, 128] bf16, conv2_1 + BN folded
@@ -62,20 +69,43 @@ class StemParams(NamedTuple):
 
 @torch.no_grad()
 def stem_params(det_net) -> StemParams:
-    """Folded conv1_2 (slice1 ``3``/``4``) and conv2_1 (``7``/``8``) of a
-    float32 :class:`VGG_UNet`: BN folded in float32, then the bf16 kernels
-    (``conv12_params``/``conv21_params``) and the int8 codes of the folded
-    float32 kernels (``_wtap_q``)."""
+    """Folded conv1_1 (slice1 ``0``/``1``), conv1_2 (``3``/``4``) and
+    conv2_1 (``7``/``8``) of a float32 :class:`VGG_UNet`: BN folded in
+    float32, then the bf16 kernels (``conv12_params``/``conv21_params``,
+    ``s2d_stem._stem_folded``) and the int8 codes of the folded float32
+    kernels (``_wtap_q``)."""
     s1 = det_net.basenet.slice1
+    k0, b0 = fold_bn(s1["0"], s1["1"])
     k1, b1 = fold_bn(s1["3"], s1["4"])
     k2, b2 = fold_bn(s1["7"], s1["8"])
-    q1, sw1 = quantize_weight(k1)
-    q2, sw2 = quantize_weight(k2)
+    sw1 = scale127(k1.abs().amax(dim=(1, 2, 3)))
+    sw2 = scale127(k2.abs().amax(dim=(1, 2, 3)))
+    q1 = quantize_with(k1, sw1[:, None, None, None])
+    q2 = quantize_with(k2, sw2[:, None, None, None])
     return StemParams(
+        w0=k0.to(torch.bfloat16).contiguous(), b0=b0.contiguous(),
         w1=tap_major(k1).to(torch.bfloat16), b1=b1.contiguous(),
         w2=tap_major(k2).to(torch.bfloat16), b2=b2.contiguous(),
         q1=tap_major(q1), sw1=sw1.contiguous(), q2=tap_major(q2), sw2=sw2.contiguous(),
     )
+
+
+def stem_supported(h: int) -> bool:
+    """The JAX package's ``pallas_stem.stem_supported``: a row block of
+    ``pallas_tail._pick_rows`` exists, i.e. ``h`` is a multiple of 4."""
+    return h % 4 == 0
+
+
+def scale127(amax: torch.Tensor) -> torch.Tensor:
+    """``max(amax, 1e-12) / 127`` as kernel #7's jitted JAX wrapper
+    computes it: times the float32 constant ``1 / 127`` (XLA rewrites a
+    division by a constant so; it differs from the true quotient in the
+    last bit now and then, which moves every int8 code of a sample)."""
+    a = amax.float().clamp_min(1e-12)
+    return a * torch.full_like(a, _RCP127)
+
+
+_RCP127 = float(torch.tensor(1.0) / torch.tensor(127.0))  # exact in float32
 
 
 def _pick_rows_even(h: int) -> int:
@@ -105,6 +135,26 @@ def _conv_bias_relu(x_nhwc: torch.Tensor, w_km: torch.Tensor, b: torch.Tensor):
 
 def _nhwc(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 3, 1).contiguous()
+
+
+def s2d_prefix(x: torch.Tensor, p: StemParams) -> torch.Tensor:
+    """conv1_1 as the JAX package's space-to-depth stem computes it
+    (``ops/s2d_stem.py``): canvas ``[B, H, W, 3]`` and folded weights in
+    bf16, float32 sums, + bias, ReLU, one cast -> ``[B, H, W, 64]`` bf16,
+    the input of kernel #5 on the ``s2d`` plan.  The products of bf16
+    values are exact in float32 (and in TF32), so any float32 convolution
+    gives these sums."""
+    x = x.permute(0, 3, 1, 2).to(torch.bfloat16).float()
+    y = F.conv2d(x, p.w0.float(), padding=1)
+    return _nhwc(F.relu(y + p.b0[:, None, None])).to(torch.bfloat16)
+
+
+def fused_stem_conv_plain(x0: torch.Tensor, p: StemParams) -> torch.Tensor:
+    """Plain version of kernel #4: ``x0`` cast to bf16, bf16 weights (their
+    products are exact in float32), float32 sums, float32 bias and ReLU,
+    one cast to bf16."""
+    x0 = x0.to(torch.bfloat16)
+    return _nhwc(_conv_bias_relu(x0, p.w1, p.b1)).to(torch.bfloat16)
 
 
 def conv12_pool_plain(x0: torch.Tensor, p: StemParams) -> torch.Tensor:
@@ -143,7 +193,9 @@ def conv12_pool_conv21_q_plain(x0: torch.Tensor, p: StemParams) -> torch.Tensor:
     sums) for both convs and the blockwise requant of
     :func:`requant_windows`."""
     B, H, W, _ = x0.shape
-    xq, sx = quantize_per_sample(x0)
+    xf = x0.float()
+    sx = scale127(xf.abs().amax(dim=(1, 2, 3), keepdim=True))
+    xq = quantize_with(xf, sx)
     a = _fma(int8_conv(xq, p.q1, padding=(1, 1)).float(), sx * p.sw1, p.b1)
     pooled = _nhwc(F.max_pool2d(F.relu(a).permute(0, 3, 1, 2), 2))
     win, s2 = requant_windows(pooled, _pick_rows_even(H))
@@ -157,6 +209,7 @@ def conv12_pool_conv21_q_plain(x0: torch.Tensor, p: StemParams) -> torch.Tensor:
 
 _VP, _I = ctypes.c_void_p, ctypes.c_int
 _SIG = {
+    "conv12_bf16": [_VP] * 4 + [_I] * 3 + [_VP],
     "conv12_pool_bf16": [_VP] * 4 + [_I] * 3 + [_VP],
     "conv21_bf16": [_VP] * 4 + [_I] * 3 + [_VP],
     "quantize_per_sample_bf16": [_VP] * 4 + [_I, ctypes.c_longlong, _VP],
@@ -171,7 +224,10 @@ def _check(name: str, x0: torch.Tensor, p: StemParams, fields) -> None:
         raise ValueError(f"{name}: unsupported device {x0.device}")
     if x0.ndim != 4 or x0.shape[3] != 64 or x0.dtype != torch.bfloat16 or not x0.is_contiguous():
         raise ValueError(f"{name}: x0 must be contiguous bf16 [B, H, W, 64], got {x0.dtype} {tuple(x0.shape)}")
-    if not conv_pool_supported(x0.shape[1], x0.shape[2]):
+    if name == "fused_stem_conv":
+        if not stem_supported(x0.shape[1]) or x0.shape[2] % 8:
+            raise ValueError(f"{name}: unsupported size {x0.shape[1]}x{x0.shape[2]} (H % 4 == 0, W % 8 == 0)")
+    elif not conv_pool_supported(x0.shape[1], x0.shape[2]):
         raise ValueError(f"{name}: unsupported size {x0.shape[1]}x{x0.shape[2]} (H even with an even row split, W % 16 == 0)")
     for f in fields:
         t = getattr(p, f)
@@ -186,6 +242,21 @@ def _pooled(x0: torch.Tensor, p: StemParams) -> torch.Tensor:
     out = torch.empty((B, H // 2, W // 2, 64), dtype=torch.bfloat16, device=x0.device)
     native.check(lib.conv12_pool_bf16(*map(native.ptr, (x0, p.w1, p.b1, out)), B, H, W,
                                       native.stream(x0.device)), "conv12_pool_bf16")
+    return out
+
+
+def fused_stem_conv(x0: torch.Tensor, p: StemParams) -> torch.Tensor:
+    """Kernel #4: conv1_2 + BN + ReLU at full resolution, ``[B, H, W, 64]``
+    bf16 -> ``[B, H, W, 64]`` bf16 (``H % 4 == 0``, ``W % 8 == 0``)."""
+    if x0.device.type == "cpu":
+        return fused_stem_conv_plain(x0, p)
+    _check("fused_stem_conv", x0, p, ("w1", "b1"))
+    B, H, W, _ = x0.shape
+    lib = native.load("stem", _SIG)
+    out = torch.empty((B, H, W, 64), dtype=torch.bfloat16, device=x0.device)
+    native.check(lib.conv12_bf16(*map(native.ptr, (x0, p.w1, p.b1, out)), B, H, W,
+                                 native.stream(x0.device)), "conv12_bf16")
+    fused_stem_conv.launches += 1
     return out
 
 
@@ -247,6 +318,7 @@ def fused_conv12_pool_conv21_q(x0: torch.Tensor, p: StemParams) -> torch.Tensor:
     return out
 
 
+fused_stem_conv.launches = 0
 fused_conv12_pool.launches = 0
 fused_conv12_pool_conv21.launches = 0
 fused_conv12_pool_conv21_q.launches = 0

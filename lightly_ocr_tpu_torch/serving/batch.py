@@ -14,19 +14,30 @@ The detector runs the plan the JAX package serves on its accelerator
 * ``tail``: trunk with the seam-split decoder, then the fused tail kernel;
   without it, the plain detector (no kernel; the JAX package off its
   accelerator);
+* ``stem``: conv1_1 prefix, then the full-resolution conv1_2 kernel (#4
+  ``fused_stem_conv``) and the trunk resumed at pool1.  It needs the tail,
+  a canvas height that ``stem_supported`` takes and ``quant_int8`` off
+  (under int8 it is dropped with a warning, as in the JAX package), and it
+  wins over ``cpool``, ``cpool2`` and ``s2d``, which replace the same conv;
 * ``cpool2``: conv1_1 prefix, then the conv1_2 + pool + conv2_1 kernel
   (#7 ``fused_conv12_pool_conv21_q`` under ``quant_int8``, else #6), and
   the trunk resumed at conv2_2; ``cpool``: the conv1_2 + pool kernel (#5)
   and the trunk resumed at conv2_1.  Either needs the tail and a canvas
   that ``conv_pool_supported`` takes; ``cpool2`` wins over ``cpool``;
-* ``s2d``: the plain slice1 convolutions (the JAX package's space-to-depth
-  stem is a TPU layout rewrite of the same function);
-* ``stem`` (the full-resolution conv1_2 kernel, off under int8) is not
-  ported: a plan that would run it raises.
+* ``s2d``: the JAX package's space-to-depth stem is a TPU layout rewrite
+  of conv1_1 + conv1_2 + pool1 with both BNs folded; in bf16 the port
+  computes the same roundings as ``s2d_prefix`` (conv1_1) and kernel #5
+  (conv1_2 + pool), then the trunk resumed at conv2_1.  In float32 the
+  fold changes nothing but round-off, and the plain slice1 runs.
+
+The canvas geometry picks among these per dispatch, as in the JAX package;
+once a kernel is picked, a CUDA tensor launches it or the call raises.
 
 ``quant_int8`` builds both networks with w8a8 ``QuantConv`` layers.
 """
 from __future__ import annotations
+
+import logging
 
 import numpy as np
 import torch
@@ -51,11 +62,15 @@ from lightly_ocr_tpu_torch.ops.stem import (
     fused_conv12_pool,
     fused_conv12_pool_conv21,
     fused_conv12_pool_conv21_q,
+    fused_stem_conv,
+    s2d_prefix,
     stem_params,
+    stem_supported,
 )
 from lightly_ocr_tpu_torch.text.converters import AttnLabelConverter
 
 _LUMA = np.asarray([0.299, 0.587, 0.114], np.float32)
+log = logging.getLogger(__name__)
 
 
 def resolve_device(device) -> torch.device:
@@ -87,19 +102,26 @@ class BatchedOCR:
         self.boxes_per_image = boxes_per_image
         stages = cfg.derived_fused_stages
         self.use_tail = "tail" in stages
-        if self.use_tail and "stem" in stages and not cfg.quant_int8:
-            raise NotImplementedError(
-                "fused stage 'stem' (TPU kernel _stem_kernel) is not ported to the "
-                "PyTorch/CUDA package yet (ROADMAP.md, Queue 2)"
-            )
-        # the fused conv1_2 + pool kernel of the plan and the trunk's resume point
+        if self.use_tail and "stem" in stages and cfg.quant_int8:
+            log.warning("fused stem requested but not active (quant_int8 is on) "
+                        "— running without it")
+        # the fused conv1_2 kernel of the plan, its prefix, the canvases it
+        # takes and the trunk's resume point
         self.front, self.resume = None, None
-        if self.use_tail and "cpool2" in stages:
+        self.prefix = lambda canvases: self.det_net.stem_prefix(canvases)
+        self.front_supported = conv_pool_supported
+        if self.use_tail and "stem" in stages and not cfg.quant_int8:
+            self.front, self.resume = fused_stem_conv, "stem"
+            self.front_supported = lambda h, w: stem_supported(h)
+        elif self.use_tail and "cpool2" in stages:
             self.resume = "c21"
             self.front = (fused_conv12_pool_conv21_q if cfg.quant_int8
                           else fused_conv12_pool_conv21)
         elif self.use_tail and "cpool" in stages:
             self.front, self.resume = fused_conv12_pool, "pool"
+        elif self.use_tail and "s2d" in stages and dtype == torch.bfloat16:
+            self.front, self.resume = fused_conv12_pool, "pool"
+            self.prefix = lambda canvases: s2d_prefix(canvases, self.stem)
         det = VGG_UNet(quant=cfg.quant_int8)
         det.load_state_dict(det_state, strict=True)
         # fold the kernels' BNs from the float32 master weights, then cast
@@ -121,8 +143,8 @@ class BatchedOCR:
         if not self.use_tail:
             y, _ = self.det_net(canvases)
             return y[..., 0].float(), y[..., 1].float()
-        if self.front is not None and conv_pool_supported(*canvases.shape[1:3]):
-            x0 = self.det_net.stem_prefix(canvases)
+        if self.front is not None and self.front_supported(*canvases.shape[1:3]):
+            x0 = self.prefix(canvases)
             y_lo, t = self.det_net.trunk(self.front(x0, self.stem), resume=self.resume)
         else:
             y_lo, t = self.det_net.trunk(canvases)

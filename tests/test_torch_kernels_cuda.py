@@ -126,3 +126,64 @@ def test_stem_kernels_reject_bad_input(cuda_device, stem_setup):
         stem.fused_conv12_pool(x, stem_setup)  # f32 x0
     with pytest.raises(ValueError):
         stem.fused_conv12_pool_conv21_q(x.to(torch.bfloat16)[:, :, :24].contiguous(), stem_setup)  # W % 16
+
+
+@pytest.mark.parametrize("shape", [(3, 64, 48), (1, 4, 8), (2, 68, 32), (1, 96, 160)],
+                         ids=["odd_batch", "smallest", "h68", "wide"])
+def test_stem_conv_kernel_matches_plain(cuda_device, stem_setup, shape):
+    """#4, the full-resolution conv1_2: H a multiple of 4 (68: not of 8),
+    W a multiple of 8 (partial 128-column tiles); the gate of #5/#6."""
+    B, H, W = shape
+    assert stem.stem_supported(H) and W % 8 == 0
+    g = torch.Generator().manual_seed(4)
+    x0 = torch.relu(torch.randn(B, H, W, 64, generator=g)).to(cuda_device, torch.bfloat16)
+    n = stem.fused_stem_conv.launches
+    got = stem.fused_stem_conv(x0, stem_setup)
+    torch.cuda.synchronize()
+    assert stem.fused_stem_conv.launches == n + 1
+    ref = stem.fused_stem_conv_plain(x0, stem_setup)
+    assert got.shape == ref.shape == (B, H, W, 64) and got.dtype == torch.bfloat16
+    got, ref = got.float(), ref.float()
+    assert torch.isfinite(got).all()
+    assert (got - ref).abs().max().item() <= 1e-2 * ref.abs().max().item()
+    assert (got == ref).float().mean().item() >= 0.9
+
+
+@pytest.mark.parametrize("shape", [(3, 48, 32), (1, 2, 2), (1, 96, 160)],
+                         ids=["odd_batch", "2x2", "wide"])
+def test_tail_kernel_matches_plain(cuda_device, shape):
+    """#3, the tail chain from a formed x; the seam tail's gate."""
+    B, H2, W2 = shape
+    net = init_module(VGG_UNet(), torch.Generator().manual_seed(1))
+    p = st.tail_params(net, torch.bfloat16)
+    p = type(p)(*(a.to(cuda_device) for a in p))
+    g = torch.Generator().manual_seed(5)
+    x = torch.relu(torch.randn(B, H2, W2, 64, generator=g)).to(cuda_device, torch.bfloat16)
+    n = st.tail_scores.launches
+    got = st.tail_scores(x, p)
+    torch.cuda.synchronize()
+    assert st.tail_scores.launches == n + 1
+    ref = st.tail_scores_plain(x, p)
+    assert got.shape == ref.shape == (B, H2, 2, W2)
+    assert torch.isfinite(got).all()
+    assert (got - ref).abs().max().item() <= 2e-2 * ref.abs().max().item()
+    assert (got == ref).float().mean().item() >= 0.9
+
+
+def test_stem_conv_and_tail_kernels_reject_bad_input(cuda_device, stem_setup):
+    net = init_module(VGG_UNet(), torch.Generator().manual_seed(1))
+    p = st.tail_params(net, torch.bfloat16)
+    p = type(p)(*(a.to(cuda_device) for a in p))
+    bf = dict(device=cuda_device, dtype=torch.bfloat16)
+    for fn, params, shape in ((stem.fused_stem_conv, stem_setup, (1, 8, 16)),
+                              (st.tail_scores, p, (1, 8, 16))):
+        with pytest.raises(ValueError):
+            fn(torch.zeros(*shape, 64, device=cuda_device), params)  # f32
+        with pytest.raises(ValueError):
+            fn(torch.zeros(*shape, 32, **bf), params)  # channels
+        with pytest.raises(ValueError):
+            fn(torch.zeros(1, shape[2], shape[1], 64, **bf).transpose(1, 2), params)  # non-contiguous
+    with pytest.raises(ValueError):
+        stem.fused_stem_conv(torch.zeros(1, 6, 16, 64, **bf), stem_setup)  # H % 4
+    with pytest.raises(ValueError):
+        st.tail_scores(torch.zeros(1, 8, 9, 64, **bf), p)  # odd width

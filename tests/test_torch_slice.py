@@ -78,6 +78,34 @@ def test_run_images_matches_jax_batched_ocr(slice_setup):
             assert np.abs(np.asarray(g["rect"]) - np.asarray(r["rect"])).max() <= 1.0
 
 
+def test_run_images_bf16_matches_jax_batched_ocr(slice_setup):
+    """The served dtype end to end: the port's bf16 ``run_images`` (default
+    plan: the s2d front, trunk, seam tail, CC) vs the JAX ``BatchedOCR`` in
+    bf16 on the CPU (its plain bf16 detector), under the bf16 gate of the
+    JAX package's own tests (``tests/test_quant.py``): score maps within
+    0.02, identical boxes and transcripts, confidences within 0.05."""
+    images, dv, rv, kw = slice_setup
+    jocr = JBatchedOCR(JConfig(**kw), dv, rv, boxes_per_image=8, dtype=jnp.bfloat16)
+    ref = jocr.run_images(images)
+    ocr = BatchedOCR(Config(**kw), state_dict_from_variables(dv), state_dict_from_variables(rv),
+                     boxes_per_image=8, dtype=torch.bfloat16, device="cpu")
+    got = ocr.run_images(images)
+    assert sum(len(r) for r in ref) >= 6
+    for r_img, g_img in zip(ref, got):
+        assert len(g_img) == len(r_img)
+        for r, g in zip(r_img, g_img):
+            assert g["text"] == r["text"]
+            assert abs(g["confidence"] - r["confidence"]) <= 0.05
+            assert g["rect"] == r["rect"]
+    (cb, gb), idxs = next(iter(ocr.group(images).items()))
+    canv = ocr.prepare([images[i] for i in idxs], cb, gb)[0]
+    ys, _ = JVGG_UNet(dtype=jnp.bfloat16).apply(dv, jnp.asarray(canv.numpy()))
+    with torch.no_grad():
+        tm, lm = ocr.detector_scores(canv)
+    got_s = torch.stack([tm, lm], -1).numpy()
+    assert np.abs(got_s - np.asarray(ys, np.float32)).max() < 0.02
+
+
 def test_run_images_int8_matches_jax_batched_ocr(slice_setup):
     """int8 serving (``quant_int8=True``, the default plan) vs the JAX
     ``BatchedOCR(quant_int8=True)`` on the CPU, under the int8 gates of
