@@ -7,7 +7,8 @@ Phases (each prints its seconds; any failed check raises and the script
 exits non-zero with the traceback):
 
 1. build the CUDA kernels from ``lightly_ocr_tpu_torch/csrc`` (one ``nvcc``
-   per source, all started together) and load them with ``ctypes``;
+   per source, all started together), load them with ``ctypes`` and check
+   the tail kernel's strip / segment / halo against ``ops/seam_tail.py``;
 2. seam-tail kernel (#1) vs its plain PyTorch version at the serving shapes
    (batch 16, 960x640 canvas -> 480x320 maps) on the port's own trunk
    output, plus the same chain as ``F.conv2d`` calls as a yardstick; then
@@ -524,6 +525,8 @@ def main() -> int:
             if "registers" in line or "spill" in line or "error" in line.lower():
                 print(f"nvcc[{name}] {line.strip()}", file=sys.stderr)
     native.load("seam_tail", seam_tail._SIG)
+    geo = seam_tail.kernel_geometry()
+    assert geo == (seam_tail.STRIP_COLS, seam_tail.SEGMENT_ROWS, seam_tail.HALO), geo
     native.load("cc", cc._SIG)
     native.load("stem", stem._SIG)
     log(f"phase build: {time.perf_counter() - t0:.2f} s (nvcc {build_s:.2f} s)")

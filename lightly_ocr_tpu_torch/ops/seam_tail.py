@@ -26,6 +26,15 @@ The plain versions compute in the dtype of ``t`` (or ``x``): bf16 inputs
 round at the kernel's cast points, float32 inputs (the CPU parity tests) do
 not round at all.
 
+Both kernels are one launch each (one fused tensor-core kernel: ``xs`` and
+the chain's intermediates stay in shared memory), so a wrapper allocates
+only its output, ``[B, H2, 2, W2]`` float32.  A block of the kernel owns
+one sample, a strip of :data:`STRIP_COLS` output columns and a segment of
+:data:`SEGMENT_ROWS` output rows, and computes :data:`HALO` more columns on
+each side and rows above and below, with the activations outside the image
+set to zero after every layer (SAME padding); ``tests/test_torch_seam_tail.py``
+replays that cut in PyTorch.
+
 The legacy branch of :func:`fused_tail_scores_cs_seam` forms ``x`` with the
 front's products in PyTorch and runs kernel #3.  It is taken, as in the JAX
 package, when ``LIGHTLY_OCR_TAIL_SEAMK=0`` (read at call time) or when
@@ -140,9 +149,16 @@ def seam_tail_plain(ya: torch.Tensor, t: torch.Tensor,
     return tail_scores_plain(_front(ya, t, p), p)
 
 
+# The kernel's geometry (csrc/seam_tail.cu kTW, kSeg, kHalo; the library
+# reports its own through kernel_geometry()).
+STRIP_COLS = 56  # output columns of a block
+SEGMENT_ROWS = 120  # output rows of a block
+HALO = 4  # extra columns each side / rows above and below: four 3x3 convs
+
 _VP = ctypes.c_void_p
-_SIG = {"seam_tail_launch": [_VP] * 20 + [ctypes.c_int] * 3 + [_VP],
-        "tail_launch": [_VP] * 16 + [ctypes.c_int] * 3 + [_VP]}
+_SIG = {"seam_tail_launch": [_VP] * 17 + [ctypes.c_int] * 3 + [_VP],
+        "tail_launch": [_VP] * 14 + [ctypes.c_int] * 3 + [_VP],
+        "seam_tail_geometry": [_VP]}
 _CHAIN = ("wa", "ba", "w0", "b0", "w2", "b2", "w4", "b4", "w6", "b6", "w8", "b8")
 
 
@@ -172,12 +188,9 @@ def seam_tail(ya: torch.Tensor, t: torch.Tensor, p: TailParams) -> torch.Tensor:
         raise ValueError(f"seam_tail: ya must be contiguous f32 [B, H2/2, W2/2, 64] on {t.device}, got {ya.dtype} {tuple(ya.shape)}")
     _check_params("seam_tail", p, p._fields, t.device)
     lib = native.load("seam_tail", _SIG)
-    xs = torch.empty((B, H2, W2, 64), dtype=torch.bfloat16, device=t.device)
-    bufa = torch.empty((B, H2, W2, 32), dtype=torch.bfloat16, device=t.device)
-    bufb = torch.empty_like(bufa)
     out = torch.empty((B, H2, 2, W2), dtype=torch.float32, device=t.device)
     args = [t, ya, p.k1b, p.b1, p.wa, p.ba, p.w0, p.b0, p.w2, p.b2,
-            p.w4, p.b4, p.w6, p.b6, p.w8, p.b8, xs, bufa, bufb, out]
+            p.w4, p.b4, p.w6, p.b6, p.w8, p.b8, out]
     err = lib.seam_tail_launch(
         *[native.ptr(a) for a in args], B, H2, W2, native.stream(t.device)
     )
@@ -201,10 +214,8 @@ def tail_scores(x: torch.Tensor, p: TailParams) -> torch.Tensor:
         raise ValueError(f"tail_scores: H2, W2 must be even, got {H2}x{W2}")
     _check_params("tail_scores", p, _CHAIN, x.device)
     lib = native.load("seam_tail", _SIG)
-    bufa = torch.empty((B, H2, W2, 32), dtype=torch.bfloat16, device=x.device)
-    bufb = torch.empty_like(bufa)
     out = torch.empty((B, H2, 2, W2), dtype=torch.float32, device=x.device)
-    args = [x, *(getattr(p, f) for f in _CHAIN), bufa, bufb, out]
+    args = [x, *(getattr(p, f) for f in _CHAIN), out]
     err = lib.tail_launch(*[native.ptr(a) for a in args], B, H2, W2, native.stream(x.device))
     native.check(err, "tail_scores")
     tail_scores.launches += 1
@@ -213,6 +224,15 @@ def tail_scores(x: torch.Tensor, p: TailParams) -> torch.Tensor:
 
 seam_tail.launches = 0
 tail_scores.launches = 0
+
+
+def kernel_geometry() -> tuple[int, int, int]:
+    """``(strip columns, segment rows, halo)`` as compiled into the CUDA
+    library (builds it on first use; needs ``nvcc``)."""
+    lib = native.load("seam_tail", _SIG)
+    g = (ctypes.c_int * 3)()
+    lib.seam_tail_geometry(g)
+    return tuple(g)
 
 
 def fused_tail_scores_cs(p: TailParams, y192: torch.Tensor) -> torch.Tensor:

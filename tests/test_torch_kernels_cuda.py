@@ -29,7 +29,20 @@ def cuda_device():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("shape", [(2, 48, 32), (1, 30, 50), (3, 2, 2)])
+# the fused tail kernel's edges (tests/test_torch_seam_tail.py replays its
+# cut on the CPU): a strip of two columns, a segment of two rows, >= 2 strips
+# and segments, and one full main-path map (a 960x640 canvas)
+_TAIL_EDGES = [(1, 16, st.STRIP_COLS + 2), (1, st.SEGMENT_ROWS + 2, 8),
+               (2, 2 * st.SEGMENT_ROWS + 2, 2 * st.STRIP_COLS + 2), (1, 480, 320)]
+_TAIL_EDGE_IDS = ["strip2", "segment2", "strips_segments", "main_path"]
+
+
+def test_tail_kernel_geometry(cuda_device):
+    assert st.kernel_geometry() == (st.STRIP_COLS, st.SEGMENT_ROWS, st.HALO)
+
+
+@pytest.mark.parametrize("shape", [(2, 48, 32), (1, 30, 50), (3, 2, 2), *_TAIL_EDGES],
+                         ids=["2x48x32", "1x30x50", "3x2x2", *_TAIL_EDGE_IDS])
 def test_seam_tail_kernel_matches_plain(cuda_device, shape):
     """Even H2, W2 of any size, including a single 2x2 map (every pixel
     an edge pixel); tolerance relative to the scores, as in chip_smoke."""
@@ -46,7 +59,9 @@ def test_seam_tail_kernel_matches_plain(cuda_device, shape):
     assert st.seam_tail.launches == n + 1
     ref = st.seam_tail_plain(ya, t, p)
     assert got.shape == ref.shape == (B, H2, 2, W2)
+    assert torch.isfinite(got).all()
     assert (got - ref).abs().max().item() <= 2e-2 * ref.abs().max().item()
+    assert (got == ref).float().mean().item() >= 0.9
 
 
 def test_seam_tail_kernel_rejects_bad_input(cuda_device):
@@ -149,8 +164,9 @@ def test_stem_conv_kernel_matches_plain(cuda_device, stem_setup, shape):
     assert (got == ref).float().mean().item() >= 0.9
 
 
-@pytest.mark.parametrize("shape", [(3, 48, 32), (1, 2, 2), (1, 96, 160)],
-                         ids=["odd_batch", "2x2", "wide"])
+@pytest.mark.parametrize("shape", [(3, 48, 32), (1, 2, 2), (1, 96, 160), (1, 30, 50),
+                                   *_TAIL_EDGES],
+                         ids=["odd_batch", "2x2", "wide", "1x30x50", *_TAIL_EDGE_IDS])
 def test_tail_kernel_matches_plain(cuda_device, shape):
     """#3, the tail chain from a formed x; the seam tail's gate."""
     B, H2, W2 = shape
