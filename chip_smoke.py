@@ -8,7 +8,8 @@ exits non-zero with the traceback):
 
 1. build the CUDA kernels from ``lightly_ocr_tpu_torch/csrc`` (one ``nvcc``
    per source, all started together), load them with ``ctypes`` and check
-   the tail kernel's strip / segment / halo against ``ops/seam_tail.py``;
+   the tail kernel's strip / segment / halo against ``ops/seam_tail.py`` and
+   the conv1_2 kernel's (``conv3x3_hopper``) against ``ops/stem.py``;
 2. seam-tail kernel (#1) vs its plain PyTorch version at the serving shapes
    (batch 16, 960x640 canvas -> 480x320 maps) on the port's own trunk
    output, plus the same chain as ``F.conv2d`` calls as a yardstick; then
@@ -20,7 +21,9 @@ exits non-zero with the traceback):
    resolution), #5 (conv1_2 + pool), #6 (+ conv2_1) and #7 (w8a8 #6), each
    vs its plain version on the served model's own conv1_1 activation of the
    receipts (batch 16, 960x640), #7 also vs the float #6 chain; each timed
-   beside its bound, its plain version and the cuDNN bf16 chain;
+   beside its bound, its plain version and the cuDNN bf16 chain; and #6's
+   first launch (``conv3x3_hopper``) timed alone against #5
+   (``conv3x3_mma``), the same function on the same ``x0``;
 5. one dispatch of each other serving plan (bf16 ``tail,cpool``, bf16
    ``tail,cpool2``, int8 ``tail,s2d``, bf16 ``tail,stem``, and bf16
    ``tail,s2d`` with ``LIGHTLY_OCR_TAIL_SEAMK=0``) on the same receipts,
@@ -269,6 +272,24 @@ def stem_phase(ocr, canv) -> dict:
                      "replaces": f"lightly_ocr_tpu/ops/pallas_stem.py:{line_no}",
                      "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
                      "bound_by": by, "library_ms": lib_ms}
+    # #6's first launch alone (conv3x3_hopper) against #5 (conv3x3_mma): the
+    # same function on the same x0, the new core against the old in one run
+    with torch.inference_mode():
+        ref = stem.conv12_pool_plain(x0, p).float()
+        new = stem._pooled(x0, p, "conv12_pool_bf16_h").float()
+        old = stem._pooled(x0, p, "conv12_pool_bf16").float()
+        torch.cuda.synchronize()
+        err = (new - ref).abs().max().item()
+        exact = (new == ref).float().mean().item()
+        same = (new == old).float().mean().item()
+        assert err <= STEM_TOL * max(ref.abs().max().item(), 1e-6), "conv12_pool_bf16_h disagrees with plain"
+        assert exact >= STEM_EXACT["conv12_pool_conv21"], "conv12_pool_bf16_h: too few outputs equal plain"
+        del ref, new, old
+        h_ms = cuda_ms(lambda: stem._pooled(x0, p, "conv12_pool_bf16_h"), iters=10)
+        m_ms = cuda_ms(lambda: stem._pooled(x0, p, "conv12_pool_bf16"), iters=10)
+    log(f"conv12 + pool on the same x0: conv3x3_hopper (#6's first launch) {h_ms:.3f} ms, "
+        f"conv3x3_mma (#5) {m_ms:.3f} ms; hopper vs plain maxdiff {err:.3e}, bit-identical "
+        f"{exact:.5f}; bit-identical to #5 {same:.5f}")
     return out
 
 
@@ -522,13 +543,14 @@ def main() -> int:
     build_s = native.build(["seam_tail", "cc", "stem"])
     for name, text in native.build_log.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line or "error" in line.lower():
+            if any(k in line.lower() for k in ("registers", "spill", "error", "wgmma")):
                 print(f"nvcc[{name}] {line.strip()}", file=sys.stderr)
     native.load("seam_tail", seam_tail._SIG)
     geo = seam_tail.kernel_geometry()
     assert geo == (seam_tail.STRIP_COLS, seam_tail.SEGMENT_ROWS, seam_tail.HALO), geo
     native.load("cc", cc._SIG)
-    native.load("stem", stem._SIG)
+    geo = stem.kernel_geometry()
+    assert geo == stem.geometry(), geo
     log(f"phase build: {time.perf_counter() - t0:.2f} s (nvcc {build_s:.2f} s)")
 
     # -- model, seeded weights, receipts -----------------------------------

@@ -35,10 +35,18 @@ with BN folded into the convs (:func:`stem_params`):
 Each wrapper takes its plain PyTorch version (``*_plain``) for a CPU tensor,
 and for a CUDA tensor launches the kernels or raises.  The trunk resumes
 after them through ``VGG_UNet.trunk(..., resume="stem" | "pool" | "c21")``.
+
+#4 and both launches of #6 run ``conv3x3_hopper``: a block owns one sample,
+a strip of :data:`STRIP_COLS` output columns and a segment of
+:data:`SEGMENT_ROWS` output rows, reads :data:`HALO` more input rows and
+columns on each side (zeros outside the image), and pools the two conv rows
+of a step in registers; ``tests/test_torch_stem.py`` replays that cut in
+PyTorch.  #5 and #7 run the first-version ``conv3x3_mma``.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
@@ -207,10 +215,34 @@ def conv12_pool_conv21_q_plain(x0: torch.Tensor, p: StemParams) -> torch.Tensor:
     return F.relu(y).reshape(B, H // 2, W // 2, -1).to(torch.bfloat16)
 
 
+# conv3x3_hopper's geometry (csrc/stem.cu ``HGeo``; the library reports its
+# own through kernel_geometry()), keyed by output channels: 64 = conv1_2
+# (#4, #6's first launch), 128 = conv2_1 (#6's second launch).
+STRIP_COLS = {64: 128, 128: 64}  # output columns of a block
+SEGMENT_ROWS = {64: 120, 128: 60}  # output rows of a block (even: the pool's row pairs)
+HALO = 1  # input rows above and below, columns each side: one 3x3 conv
+RING_ROWS = 8  # input rows in shared memory: 4 in use, 2 steps of 2 in flight
+
+
+def smem_bytes(cout: int) -> int:
+    """Shared memory of a ``conv3x3_hopper`` block: 1,024 B of alignment
+    slack, the 9 tap tiles of bf16 weights, the f32 bias and the ring of
+    input rows (``STRIP_COLS + 2 HALO`` pixels of 128 B)."""
+    return 1024 + 9 * cout * 128 + cout * 4 + RING_ROWS * (STRIP_COLS[cout] + 2 * HALO) * 128
+
+
+def geometry() -> tuple[int, ...]:
+    """The wrapper's copy of ``stem_geometry()``'s tuple."""
+    return (STRIP_COLS[64], SEGMENT_ROWS[64], STRIP_COLS[128], SEGMENT_ROWS[128], HALO,
+            RING_ROWS, smem_bytes(64), smem_bytes(128))
+
+
 _VP, _I = ctypes.c_void_p, ctypes.c_int
 _SIG = {
     "conv12_bf16": [_VP] * 4 + [_I] * 3 + [_VP],
     "conv12_pool_bf16": [_VP] * 4 + [_I] * 3 + [_VP],
+    "conv12_pool_bf16_h": [_VP] * 4 + [_I] * 3 + [_VP],
+    "stem_geometry": [_VP],
     "conv21_bf16": [_VP] * 4 + [_I] * 3 + [_VP],
     "quantize_per_sample_bf16": [_VP] * 4 + [_I, ctypes.c_longlong, _VP],
     "conv12_pool_s8": [_VP] * 6 + [_I] * 3 + [_VP],
@@ -236,12 +268,32 @@ def _check(name: str, x0: torch.Tensor, p: StemParams, fields) -> None:
             raise ValueError(f"{name}: param {f} must be contiguous {want} on {x0.device}, got {t.dtype} on {t.device}")
 
 
-def _pooled(x0: torch.Tensor, p: StemParams) -> torch.Tensor:
-    B, H, W, _ = x0.shape
+def kernel_geometry() -> tuple[int, ...]:
+    """``stem_geometry()`` as compiled into the CUDA library (builds it on
+    first use; needs ``nvcc``)."""
     lib = native.load("stem", _SIG)
+    g = (ctypes.c_int * 8)()
+    lib.stem_geometry(g)
+    return tuple(g)
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    """The stem library, its ``conv3x3_hopper`` geometry checked against
+    :func:`geometry` once."""
+    got = kernel_geometry()
+    if got != geometry():
+        raise RuntimeError(f"csrc/stem.cu geometry {got} != ops/stem.py {geometry()}")
+    return native.load("stem", _SIG)
+
+
+def _pooled(x0: torch.Tensor, p: StemParams, launcher: str) -> torch.Tensor:
+    """The bf16 pooled map of #5 (``conv12_pool_bf16``, ``conv3x3_mma``) or
+    of #6's first launch (``conv12_pool_bf16_h``, ``conv3x3_hopper``)."""
+    B, H, W, _ = x0.shape
     out = torch.empty((B, H // 2, W // 2, 64), dtype=torch.bfloat16, device=x0.device)
-    native.check(lib.conv12_pool_bf16(*map(native.ptr, (x0, p.w1, p.b1, out)), B, H, W,
-                                      native.stream(x0.device)), "conv12_pool_bf16")
+    native.check(getattr(_lib(), launcher)(*map(native.ptr, (x0, p.w1, p.b1, out)), B, H, W,
+                                           native.stream(x0.device)), launcher)
     return out
 
 
@@ -252,10 +304,9 @@ def fused_stem_conv(x0: torch.Tensor, p: StemParams) -> torch.Tensor:
         return fused_stem_conv_plain(x0, p)
     _check("fused_stem_conv", x0, p, ("w1", "b1"))
     B, H, W, _ = x0.shape
-    lib = native.load("stem", _SIG)
     out = torch.empty((B, H, W, 64), dtype=torch.bfloat16, device=x0.device)
-    native.check(lib.conv12_bf16(*map(native.ptr, (x0, p.w1, p.b1, out)), B, H, W,
-                                 native.stream(x0.device)), "conv12_bf16")
+    native.check(_lib().conv12_bf16(*map(native.ptr, (x0, p.w1, p.b1, out)), B, H, W,
+                                    native.stream(x0.device)), "conv12_bf16")
     fused_stem_conv.launches += 1
     return out
 
@@ -266,23 +317,23 @@ def fused_conv12_pool(x0: torch.Tensor, p: StemParams) -> torch.Tensor:
     if x0.device.type == "cpu":
         return conv12_pool_plain(x0, p)
     _check("fused_conv12_pool", x0, p, ("w1", "b1"))
-    out = _pooled(x0, p)
+    out = _pooled(x0, p, "conv12_pool_bf16")
     fused_conv12_pool.launches += 1
     return out
 
 
 def fused_conv12_pool_conv21(x0: torch.Tensor, p: StemParams) -> torch.Tensor:
     """Kernel #6: #5, then conv2_1 + BN + ReLU -> ``[B, H/2, W/2, 128]``
-    bf16 (two launches)."""
+    bf16 (two launches of ``conv3x3_hopper``; the pooled map goes through
+    device memory in bf16)."""
     if x0.device.type == "cpu":
         return conv12_pool_conv21_plain(x0, p)
     _check("fused_conv12_pool_conv21", x0, p, ("w1", "b1", "w2", "b2"))
     B, H, W, _ = x0.shape
-    pooled = _pooled(x0, p)
-    lib = native.load("stem", _SIG)
+    pooled = _pooled(x0, p, "conv12_pool_bf16_h")
     out = torch.empty((B, H // 2, W // 2, 128), dtype=torch.bfloat16, device=x0.device)
-    native.check(lib.conv21_bf16(*map(native.ptr, (pooled, p.w2, p.b2, out)), B, H // 2, W // 2,
-                                 native.stream(x0.device)), "conv21_bf16")
+    native.check(_lib().conv21_bf16(*map(native.ptr, (pooled, p.w2, p.b2, out)), B, H // 2,
+                                    W // 2, native.stream(x0.device)), "conv21_bf16")
     fused_conv12_pool_conv21.launches += 1
     return out
 
@@ -298,7 +349,7 @@ def fused_conv12_pool_conv21_q(x0: torch.Tensor, p: StemParams) -> torch.Tensor:
     _check("fused_conv12_pool_conv21_q", x0, p, ("q1", "sw1", "b1", "q2", "sw2", "b2"))
     B, H, W, _ = x0.shape
     H2, W2, r2 = H // 2, W // 2, _pick_rows_even(H) // 2
-    lib = native.load("stem", _SIG)
+    lib = _lib()
     s = native.stream(x0.device)
     amax = torch.zeros((B,), dtype=torch.float32, device=x0.device)
     xq = torch.empty(x0.shape, dtype=torch.int8, device=x0.device)

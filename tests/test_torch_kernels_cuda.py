@@ -107,9 +107,22 @@ def stem_setup(cuda_device, monkeypatch):
 
 STEM_KERNELS = ["fused_conv12_pool", "fused_conv12_pool_conv21", "fused_conv12_pool_conv21_q"]
 
+# conv3x3_hopper's edges (tests/test_torch_stem.py replays its cut on the
+# CPU): a W past one conv1_2 strip (W/2 past one conv2_1 strip), an H past
+# two conv1_2 segments (H/2 past two conv2_1 segments), one full main-path
+# canvas
+_HOPPER_EDGES = [(1, 4, stem.STRIP_COLS[64] + 16), (1, 2 * stem.SEGMENT_ROWS[64] + 4, 16),
+                 (1, 960, 640)]
+_HOPPER_EDGE_IDS = ["strip_edge", "segment_edge", "main_path"]
 
-@pytest.mark.parametrize("shape", [(3, 64, 48), (1, 2, 16), (2, 66, 32), (1, 96, 160)],
-                         ids=["odd_batch", "smallest", "rows2_odd_h2", "wide"])
+
+def test_stem_kernel_geometry(cuda_device):
+    assert stem.kernel_geometry() == stem.geometry()
+
+
+@pytest.mark.parametrize("shape", [(3, 64, 48), (1, 2, 16), (2, 66, 32), (1, 96, 160),
+                                   *_HOPPER_EDGES],
+                         ids=["odd_batch", "smallest", "rows2_odd_h2", "wide", *_HOPPER_EDGE_IDS])
 @pytest.mark.parametrize("name", STEM_KERNELS)
 def test_stem_kernel_matches_plain(cuda_device, stem_setup, name, shape):
     """#5/#6: the same bf16 operands summed in another order: at least 90%
@@ -143,11 +156,12 @@ def test_stem_kernels_reject_bad_input(cuda_device, stem_setup):
         stem.fused_conv12_pool_conv21_q(x.to(torch.bfloat16)[:, :, :24].contiguous(), stem_setup)  # W % 16
 
 
-@pytest.mark.parametrize("shape", [(3, 64, 48), (1, 4, 8), (2, 68, 32), (1, 96, 160)],
-                         ids=["odd_batch", "smallest", "h68", "wide"])
+@pytest.mark.parametrize("shape", [(3, 64, 48), (1, 4, 8), (2, 68, 32), (1, 96, 160),
+                                   (1, 8, stem.STRIP_COLS[64] + 8), *_HOPPER_EDGES[1:]],
+                         ids=["odd_batch", "smallest", "h68", "wide", *_HOPPER_EDGE_IDS])
 def test_stem_conv_kernel_matches_plain(cuda_device, stem_setup, shape):
     """#4, the full-resolution conv1_2: H a multiple of 4 (68: not of 8),
-    W a multiple of 8 (partial 128-column tiles); the gate of #5/#6."""
+    W a multiple of 8 (partial strips); the gate of #5/#6."""
     B, H, W = shape
     assert stem.stem_supported(H) and W % 8 == 0
     g = torch.Generator().manual_seed(4)

@@ -15,6 +15,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from lightly_ocr_tpu.models.vgg_unet import VGG_UNet as JVGG_UNet
 from lightly_ocr_tpu.models.vgg_unet import VGG_UNetTrunk as JTrunk
@@ -421,3 +422,107 @@ def test_demo_checkpoint_plan_matches_jax(demo_setup, plan):
     assert vj.sum() >= 6
     np.testing.assert_array_equal(vt, vj)
     np.testing.assert_array_equal(bt, bj)
+
+
+# -- conv3x3_hopper's cut of the map, replayed in PyTorch ---------------------
+# Integer-valued operands keep every float32 sum exact whatever its order, so
+# the stitched blocks must equal the whole-map plain versions bit for bit.
+
+
+def _int_stem_params(seed: int) -> stem.StemParams:
+    rng = np.random.default_rng(seed)
+
+    def w(cout):  # {-1, 0, 1}, tap-major [576, cout]
+        return torch.from_numpy(rng.choice([-1.0, 0.0, 1.0], size=(576, cout), p=[0.2, 0.6, 0.2])
+                                .astype(np.float32)).to(torch.bfloat16)
+
+    def b(n):  # positive biases make relu(bias) != 0 where the input is zero
+        return torch.from_numpy(rng.integers(-2, 4, n).astype(np.float32))
+
+    none = torch.zeros(0)
+    return stem.StemParams(w0=none, b0=none, w1=w(64), b1=b(64), w2=w(128), b2=b(128),
+                           q1=none, sw1=none, q2=none, sw2=none)
+
+
+def _window(a, r0, r1, c0, c1):
+    """``a`` [H, W, C] cut to rows [r0, r1), cols [c0, c1), zeros outside."""
+    H, W, C = a.shape
+    out = a.new_zeros((r1 - r0, c1 - c0, C))
+    rr0, rr1, cc0, cc1 = max(r0, 0), min(r1, H), max(c0, 0), min(c1, W)
+    if rr0 < rr1 and cc0 < cc1:
+        out[rr0 - r0:rr1 - r0, cc0 - c0:cc1 - c0] = a[rr0:rr1, cc0:cc1]
+    return out
+
+
+def _replay_conv(x, wk, bk, pool):
+    """One launch of ``conv3x3_hopper`` stitched from its blocks: each block
+    (sample, strip, segment) takes its input rows and columns with HALO more
+    on every side, zeros outside the image, and computes two conv rows a
+    step (a segment of odd length computes one row past the image) as a
+    VALID 3x3 conv, + bias, ReLU; with ``pool`` the 2x2 max pairs conv
+    columns (2g, 2g + 1) of the step's two rows.  The block keeps what lies
+    inside the image.  ``x`` [B, H, W, 64] float32 -> bf16."""
+    cout = wk.shape[1]
+    strip, seg, halo = stem.STRIP_COLS[cout], stem.SEGMENT_ROWS[cout], stem.HALO
+    B, H, W, _ = x.shape
+    k = stem._oihw(wk)
+    out = torch.full((B, H // 2, W // 2, cout) if pool else (B, H, W, cout), float("nan"))
+    for b in range(B):
+        for c0 in range(0, W, strip):
+            for s0 in range(0, H, seg):
+                s1 = min(s0 + seg, H)
+                rows = s1 - s0 + (s1 - s0) % 2
+                win = _window(x[b], s0 - halo, s0 + rows + halo, c0 - halo, c0 + strip + halo)
+                y = F.relu(F.conv2d(win.permute(2, 0, 1)[None], k)[0] + bk[:, None, None])
+                if pool:
+                    y = y.view(cout, rows // 2, 2, strip // 2, 2).amax(dim=(2, 4))
+                    r0, r1, cc0, cc1 = s0 // 2, s1 // 2, c0 // 2, min(c0 + strip, W) // 2
+                else:
+                    r0, r1, cc0, cc1 = s0, s1, c0, min(c0 + strip, W)
+                out[b, r0:r1, cc0:cc1] = y[:, :r1 - r0, :cc1 - cc0].permute(1, 2, 0)
+    return out.to(torch.bfloat16)
+
+
+# the smallest sizes (#4: H % 4 == 0, W % 8 == 0; #6: H even, W % 16 == 0),
+# a W past one strip, an H past two segments, and a wide map
+_HOPPER_CUT = [("stem_conv", (1, 4, 8)), ("stem_conv", (1, 8, stem.STRIP_COLS[64] + 8)),
+               ("stem_conv", (1, 2 * stem.SEGMENT_ROWS[64] + 4, 16)), ("stem_conv", (1, 96, 160)),
+               ("conv12_pool_conv21", (1, 2, 16)),
+               ("conv12_pool_conv21", (1, 4, stem.STRIP_COLS[64] + 16)),
+               ("conv12_pool_conv21", (1, 2 * stem.SEGMENT_ROWS[64] + 4, 16)),
+               ("conv12_pool_conv21", (1, 96, 160))]
+
+
+@pytest.mark.parametrize("kernel,shape", _HOPPER_CUT,
+                         ids=[f"{k}-{'x'.join(map(str, s))}" for k, s in _HOPPER_CUT])
+def test_hopper_cut_stitches_to_plain(kernel, shape):
+    """#4, and #6 as its two launches (conv1_2 + pool, then conv2_1 on the
+    bf16 pooled map), replayed block by block, equal the plain versions."""
+    B, H, W = shape
+    p = _int_stem_params(11)
+    rng = np.random.default_rng(H * 1000 + W)
+    x0 = torch.from_numpy(rng.integers(0, 4, (B, H, W, 64)).astype(np.float32)).to(torch.bfloat16)
+    if kernel == "stem_conv":
+        ref = stem.fused_stem_conv_plain(x0, p)
+        got = _replay_conv(x0.float(), p.w1, p.b1, pool=False)
+    else:
+        ref = stem.conv12_pool_conv21_plain(x0, p)
+        pooled = _replay_conv(x0.float(), p.w1, p.b1, pool=True)
+        assert torch.equal(pooled, stem.conv12_pool_plain(x0, p))
+        got = _replay_conv(pooled.float(), p.w2, p.b2, pool=False)
+    assert ref.float().abs().max() < 2 ** 20  # integer sums stay exact in float32
+    assert ref.unique().numel() > 16  # the signal reaches the output
+    assert got.shape == ref.shape
+    torch.testing.assert_close(got, ref, rtol=0, atol=0)
+
+
+def test_hopper_geometry_fits_shared_memory():
+    """A conv3x3_hopper block's weights, bias and ring of input rows fit the
+    232,448 B of shared memory an H100 block may have; segments are whole row pairs (the pool's),
+    strips whole 64-column warpgroup tiles, and the ring holds the step's 4
+    input rows and two steps of 2 in flight."""
+    for cout in (64, 128):
+        assert stem.smem_bytes(cout) <= 232448
+        assert stem.SEGMENT_ROWS[cout] % 2 == 0 and stem.STRIP_COLS[cout] % 64 == 0
+    assert stem.RING_ROWS == 4 + 2 * 2 and stem.HALO == 1
+    assert stem.geometry() == (128, 120, 64, 60, 1, 8, 208128, 216576)  # the note in stem.cu
