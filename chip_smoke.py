@@ -21,9 +21,9 @@ exits non-zero with the traceback):
    resolution), #5 (conv1_2 + pool), #6 (+ conv2_1) and #7 (w8a8 #6), each
    vs its plain version on the served model's own conv1_1 activation of the
    receipts (batch 16, 960x640), #7 also vs the float #6 chain; each timed
-   beside its bound, its plain version and the cuDNN bf16 chain; and #6's
-   first launch (``conv3x3_hopper``) timed alone against #5
-   (``conv3x3_mma``), the same function on the same ``x0``;
+   beside its bound, its plain version and the cuDNN bf16 chain (for #7,
+   which has no PyTorch counterpart, only for scale); and #7's launches
+   timed one by one;
 5. one dispatch of each other serving plan (bf16 ``tail,cpool``, bf16
    ``tail,cpool2``, int8 ``tail,s2d``, bf16 ``tail,stem``, and bf16
    ``tail,s2d`` with ``LIGHTLY_OCR_TAIL_SEAMK=0``) on the same receipts,
@@ -264,32 +264,22 @@ def stem_phase(ocr, canv) -> dict:
             lib_ms = cuda_ms(lib[name], iters=10)
         bound, by = stem_bound_ms(B, H, W, name.startswith("conv12_pool_conv21"),
                                   name.endswith("_q"), pool=name != "stem_conv")
-        log(f"{name} ms: kernel {ms:.3f} plain {plain_ms:.3f} library {lib_ms:.3f} "
-            f"(cuDNN bf16 chain{', the bf16 yardstick of the int8 kernel' if name.endswith('_q') else ''}) "
-            f"bound {bound:.3f} ({by})")
+        q = name.endswith("_q")  # PyTorch has no int8 conv: the bf16 chain is shown for scale only
+        log(f"{name} ms: kernel {ms:.3f} plain {plain_ms:.3f} "
+            f"{'bf16 chain for scale (not the same function)' if q else 'library (cuDNN bf16 chain)'} "
+            f"{lib_ms:.3f} bound {bound:.3f} ({by})")
         out[name] = {"name": name, "route": "cuda",
                      "source": "lightly_ocr_tpu_torch/csrc/stem.cu",
                      "replaces": f"lightly_ocr_tpu/ops/pallas_stem.py:{line_no}",
                      "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-                     "bound_by": by, "library_ms": lib_ms}
-    # #6's first launch alone (conv3x3_hopper) against #5 (conv3x3_mma): the
-    # same function on the same x0, the new core against the old in one run
+                     "bound_by": by, "library_ms": None if q else lib_ms}
+    # #7's launches one by one, each on what the ones before it wrote: the
+    # split of its time
     with torch.inference_mode():
-        ref = stem.conv12_pool_plain(x0, p).float()
-        new = stem._pooled(x0, p, "conv12_pool_bf16_h").float()
-        old = stem._pooled(x0, p, "conv12_pool_bf16").float()
-        torch.cuda.synchronize()
-        err = (new - ref).abs().max().item()
-        exact = (new == ref).float().mean().item()
-        same = (new == old).float().mean().item()
-        assert err <= STEM_TOL * max(ref.abs().max().item(), 1e-6), "conv12_pool_bf16_h disagrees with plain"
-        assert exact >= STEM_EXACT["conv12_pool_conv21"], "conv12_pool_bf16_h: too few outputs equal plain"
-        del ref, new, old
-        h_ms = cuda_ms(lambda: stem._pooled(x0, p, "conv12_pool_bf16_h"), iters=10)
-        m_ms = cuda_ms(lambda: stem._pooled(x0, p, "conv12_pool_bf16"), iters=10)
-    log(f"conv12 + pool on the same x0: conv3x3_hopper (#6's first launch) {h_ms:.3f} ms, "
-        f"conv3x3_mma (#5) {m_ms:.3f} ms; hopper vs plain maxdiff {err:.3e}, bit-identical "
-        f"{exact:.5f}; bit-identical to #5 {same:.5f}")
+        _, launches = stem.int8_launches(x0, p)
+        split = {name: cuda_ms(launch, iters=10) for name, launch in launches}
+    log("conv12_pool_conv21_q launches ms: "
+        + ", ".join(f"{name} {t:.3f}" for name, t in split.items()) + f" (sum {sum(split.values()):.3f})")
     return out
 
 
@@ -658,6 +648,8 @@ def main() -> int:
     model, launches, rps, _ = serve(e2e_cfg, det_sd, rec_sd, imgs, BF16_DISPATCHES, "bf16 tail,s2d")
     for k in ("conv12_pool", "seam_tail", "cc"):
         assert launches[k] > 0, f"{k} not on the bf16 tail,s2d path: {launches}"
+    # the seam tail runs once a dispatch, whatever batches the worker formed
+    assert launches["conv12_pool"] == launches["seam_tail"], f"#5 not in every dispatch: {launches}"
     log(f"phase e2e bf16: {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
     stages = stage_times(model.ocr, imgs)
@@ -684,6 +676,8 @@ def main() -> int:
     model, q_launches, q_rps, _ = serve(q_cfg, det_sd, rec_sd, imgs, DISPATCHES, "int8 tail,cpool2")
     for k in ("conv12_pool_conv21_q", "seam_tail", "cc"):
         assert q_launches[k] > 0, f"{k} not on the int8 cpool2 path: {q_launches}"
+    assert q_launches["conv12_pool_conv21_q"] == q_launches["seam_tail"], \
+        f"#7 not in every dispatch: {q_launches}"
     log(f"e2e int8 tail,cpool2: {q_rps:.2f} receipts/s on {smi} (bf16 tail,s2d: {rps:.2f}, "
         f"bf16 tail,stem: {s_rps:.2f})")
     log(f"phase e2e int8: {time.perf_counter() - t0:.2f} s")
@@ -695,13 +689,13 @@ def main() -> int:
     log(f"phase stages int8: {time.perf_counter() - t0:.2f} s")
 
     # launches: each kernel's count over the timed run of the path that
-    # drives it (the bf16 default plan for the seam tail and CC, the bf16
+    # drives it (the bf16 default plan for the seam tail, CC and #5, the bf16
     # stem plan for #4, the int8 cpool2 plan for #7, one dispatch of bf16
-    # cpool / cpool2 / SEAMK=0 for #5 / #6 / #3)
+    # cpool2 / SEAMK=0 for #6 / #3)
     paths = {"seam_tail": ("bf16 tail,s2d", launches), "cc": ("bf16 tail,s2d", launches),
              "tail": ("bf16 tail,s2d SEAMK=0", plan_launches["bf16 tail,s2d SEAMK=0"]),
              "stem_conv": ("bf16 tail,stem", s_launches),
-             "conv12_pool": ("bf16 tail,cpool", plan_launches["bf16 tail,cpool"]),
+             "conv12_pool": ("bf16 tail,s2d", launches),
              "conv12_pool_conv21": ("bf16 tail,cpool2", plan_launches["bf16 tail,cpool2"]),
              "conv12_pool_conv21_q": ("int8 tail,cpool2", q_launches)}
     kernels = [

@@ -36,12 +36,15 @@ Each wrapper takes its plain PyTorch version (``*_plain``) for a CPU tensor,
 and for a CUDA tensor launches the kernels or raises.  The trunk resumes
 after them through ``VGG_UNet.trunk(..., resume="stem" | "pool" | "c21")``.
 
-#4 and both launches of #6 run ``conv3x3_hopper``: a block owns one sample,
-a strip of :data:`STRIP_COLS` output columns and a segment of
-:data:`SEGMENT_ROWS` output rows, reads :data:`HALO` more input rows and
-columns on each side (zeros outside the image), and pools the two conv rows
-of a step in registers; ``tests/test_torch_stem.py`` replays that cut in
-PyTorch.  #5 and #7 run the first-version ``conv3x3_mma``.
+Every convolution runs ``conv3x3_hopper`` (bf16 for #4-#6, s8 for #7): a
+block owns one sample, a strip of :data:`STRIP_COLS` output columns and a
+segment of :data:`SEGMENT_ROWS` output rows (#7's conv1_2:
+:data:`S8_SEGMENT_ROWS`; its conv2_1: one requant block), reads
+:data:`HALO` more input rows and columns on each side (zeros outside the
+image), and pools the two conv rows of a step in registers.
+#7's conv1_2 also takes each pooled row's max, from which its conv2_1
+forms the block scales; ``tests/test_torch_stem.py`` replays both cuts in
+PyTorch.
 """
 from __future__ import annotations
 
@@ -217,36 +220,47 @@ def conv12_pool_conv21_q_plain(x0: torch.Tensor, p: StemParams) -> torch.Tensor:
 
 # conv3x3_hopper's geometry (csrc/stem.cu ``HGeo``; the library reports its
 # own through kernel_geometry()), keyed by output channels: 64 = conv1_2
-# (#4, #6's first launch), 128 = conv2_1 (#6's second launch).
+# (#4, #5 = #6's first launch, #7's conv1_2), 128 = conv2_1 (#6's second
+# launch; #7's conv2_1 takes the strip, and a requant block as its segment).
 STRIP_COLS = {64: 128, 128: 64}  # output columns of a block
 SEGMENT_ROWS = {64: 120, 128: 60}  # output rows of a block (even: the pool's row pairs)
+# #7's conv1_2 runs two blocks an SM, and segments half as long
+S8_BLOCKS, S8_SEGMENT_ROWS = 2, 60
 HALO = 1  # input rows above and below, columns each side: one 3x3 conv
 RING_ROWS = 8  # input rows in shared memory: 4 in use, 2 steps of 2 in flight
+STAGE_ROWS = 4  # #7's conv2_1: float32 rows copied ahead, quantized into the ring
 
 
-def smem_bytes(cout: int) -> int:
+def smem_bytes(cout: int, s8: bool = False) -> int:
     """Shared memory of a ``conv3x3_hopper`` block: 1,024 B of alignment
-    slack, the 9 tap tiles of bf16 weights, the f32 bias and the ring of
-    input rows (``STRIP_COLS + 2 HALO`` pixels of 128 B)."""
-    return 1024 + 9 * cout * 128 + cout * 4 + RING_ROWS * (STRIP_COLS[cout] + 2 * HALO) * 128
+    slack, the weights as K-major tiles of 128 bytes a row (bf16: a tap a
+    tile; s8: two taps a tile, 5 tiles), the f32 bias (s8: and the weight
+    scales), the ring of input rows (``STRIP_COLS + 2 HALO`` pixels of 64
+    channels), and for the s8 conv2_1 the float32 staging rows."""
+    pix = STRIP_COLS[cout] + 2 * HALO
+    esize = 1 if s8 else 2
+    tiles = -(-9 * 64 * esize // 128)
+    stage = STAGE_ROWS * pix * 64 * 4 if s8 and cout == 128 else 0
+    return (1024 + tiles * cout * 128 + cout * 4 * (2 if s8 else 1) + RING_ROWS * pix * 64 * esize
+            + stage)
 
 
 def geometry() -> tuple[int, ...]:
     """The wrapper's copy of ``stem_geometry()``'s tuple."""
-    return (STRIP_COLS[64], SEGMENT_ROWS[64], STRIP_COLS[128], SEGMENT_ROWS[128], HALO,
-            RING_ROWS, smem_bytes(64), smem_bytes(128))
+    return (STRIP_COLS[64], SEGMENT_ROWS[64], STRIP_COLS[128], SEGMENT_ROWS[128],
+            S8_SEGMENT_ROWS, S8_BLOCKS, HALO, RING_ROWS, STAGE_ROWS, smem_bytes(64),
+            smem_bytes(128), smem_bytes(64, s8=True), smem_bytes(128, s8=True))
 
 
 _VP, _I = ctypes.c_void_p, ctypes.c_int
 _SIG = {
     "conv12_bf16": [_VP] * 4 + [_I] * 3 + [_VP],
     "conv12_pool_bf16": [_VP] * 4 + [_I] * 3 + [_VP],
-    "conv12_pool_bf16_h": [_VP] * 4 + [_I] * 3 + [_VP],
     "stem_geometry": [_VP],
     "conv21_bf16": [_VP] * 4 + [_I] * 3 + [_VP],
-    "quantize_per_sample_bf16": [_VP] * 4 + [_I, ctypes.c_longlong, _VP],
-    "conv12_pool_s8": [_VP] * 6 + [_I] * 3 + [_VP],
-    "requant_scales": [_VP] * 2 + [_I] * 4 + [_VP],
+    "sample_amax_bf16": [_VP] * 2 + [_I, ctypes.c_longlong, _VP],
+    "quantize_bf16": [_VP] * 4 + [_I, ctypes.c_longlong, _VP],
+    "conv12_pool_s8": [_VP] * 7 + [_I] * 3 + [_VP],
     "conv21_s8": [_VP] * 6 + [_I] * 4 + [_VP],
 }
 
@@ -272,7 +286,7 @@ def kernel_geometry() -> tuple[int, ...]:
     """``stem_geometry()`` as compiled into the CUDA library (builds it on
     first use; needs ``nvcc``)."""
     lib = native.load("stem", _SIG)
-    g = (ctypes.c_int * 8)()
+    g = (ctypes.c_int * 13)()
     lib.stem_geometry(g)
     return tuple(g)
 
@@ -287,13 +301,13 @@ def _lib() -> ctypes.CDLL:
     return native.load("stem", _SIG)
 
 
-def _pooled(x0: torch.Tensor, p: StemParams, launcher: str) -> torch.Tensor:
-    """The bf16 pooled map of #5 (``conv12_pool_bf16``, ``conv3x3_mma``) or
-    of #6's first launch (``conv12_pool_bf16_h``, ``conv3x3_hopper``)."""
+def _pooled(x0: torch.Tensor, p: StemParams) -> torch.Tensor:
+    """The bf16 pooled map of #5, which is also #6's first launch
+    (``conv12_pool_bf16``)."""
     B, H, W, _ = x0.shape
     out = torch.empty((B, H // 2, W // 2, 64), dtype=torch.bfloat16, device=x0.device)
-    native.check(getattr(_lib(), launcher)(*map(native.ptr, (x0, p.w1, p.b1, out)), B, H, W,
-                                           native.stream(x0.device)), launcher)
+    native.check(_lib().conv12_pool_bf16(*map(native.ptr, (x0, p.w1, p.b1, out)), B, H, W,
+                                         native.stream(x0.device)), "conv12_pool_bf16")
     return out
 
 
@@ -317,7 +331,7 @@ def fused_conv12_pool(x0: torch.Tensor, p: StemParams) -> torch.Tensor:
     if x0.device.type == "cpu":
         return conv12_pool_plain(x0, p)
     _check("fused_conv12_pool", x0, p, ("w1", "b1"))
-    out = _pooled(x0, p, "conv12_pool_bf16")
+    out = _pooled(x0, p)
     fused_conv12_pool.launches += 1
     return out
 
@@ -330,7 +344,7 @@ def fused_conv12_pool_conv21(x0: torch.Tensor, p: StemParams) -> torch.Tensor:
         return conv12_pool_conv21_plain(x0, p)
     _check("fused_conv12_pool_conv21", x0, p, ("w1", "b1", "w2", "b2"))
     B, H, W, _ = x0.shape
-    pooled = _pooled(x0, p, "conv12_pool_bf16_h")
+    pooled = _pooled(x0, p)
     out = torch.empty((B, H // 2, W // 2, 128), dtype=torch.bfloat16, device=x0.device)
     native.check(_lib().conv21_bf16(*map(native.ptr, (pooled, p.w2, p.b2, out)), B, H // 2,
                                     W // 2, native.stream(x0.device)), "conv21_bf16")
@@ -338,33 +352,45 @@ def fused_conv12_pool_conv21(x0: torch.Tensor, p: StemParams) -> torch.Tensor:
     return out
 
 
+def int8_launches(x0: torch.Tensor, p: StemParams):
+    """Kernel #7's four launches on ``x0``, not yet run: ``(out, [(name,
+    launch), ...])`` in order; each launch reads what the ones before it
+    wrote, and may be run again on its own (for timing).  ``x0`` and ``p``
+    as :func:`fused_conv12_pool_conv21_q` checks them."""
+    B, H, W, _ = x0.shape
+    H2, W2, r2 = H // 2, W // 2, _pick_rows_even(H) // 2
+    lib, s, dev = _lib(), native.stream(x0.device), x0.device
+    amax = torch.empty((B,), dtype=torch.float32, device=dev)
+    xq = torch.empty(x0.shape, dtype=torch.int8, device=dev)
+    sx = torch.empty((B,), dtype=torch.float32, device=dev)
+    pooled = torch.empty((B, H2, W2, 64), dtype=torch.float32, device=dev)
+    rowmax = torch.empty((B, H2), dtype=torch.float32, device=dev)
+    out = torch.empty((B, H2, W2, 128), dtype=torch.bfloat16, device=dev)
+    ptr = native.ptr
+    steps = [
+        ("sample_amax_bf16", lambda: lib.sample_amax_bf16(ptr(x0), ptr(amax), B, H * W * 64, s)),
+        ("quantize_bf16", lambda: lib.quantize_bf16(*map(ptr, (x0, amax, xq, sx)), B, H * W * 64, s)),
+        ("conv12_pool_s8", lambda: lib.conv12_pool_s8(
+            *map(ptr, (xq, sx, p.q1, p.sw1, p.b1, pooled, rowmax)), B, H, W, s)),
+        ("conv21_s8", lambda: lib.conv21_s8(
+            *map(ptr, (pooled, rowmax, p.q2, p.sw2, p.b2, out)), B, H2, W2, r2, s)),
+    ]
+    return out, [(name, lambda name=name, f=f: native.check(f(), name)) for name, f in steps]
+
+
 def fused_conv12_pool_conv21_q(x0: torch.Tensor, p: StemParams) -> torch.Tensor:
     """Kernel #7: the w8a8 form of #6 -> ``[B, H/2, W/2, 128]`` bf16, in
-    four steps: the per-sample quantization of ``x0`` (which the JAX
-    package runs in XLA before its kernel; two launches), int8 conv1_2 +
-    pool into a float32 pooled map, the block scales ``s2``, and the int8
-    conv2_1 that quantizes the pooled map as it loads it."""
+    four launches (:func:`int8_launches`): the per-sample ``amax`` and the
+    quantization of ``x0`` (which the JAX package runs in XLA before its
+    kernel), the int8 conv1_2 + pool into a float32 pooled map with each
+    pooled row's max, and the int8 conv2_1, which takes the block scales
+    ``s2`` from those maxima and quantizes the pooled map as it loads it."""
     if x0.device.type == "cpu":
         return conv12_pool_conv21_q_plain(x0, p)
     _check("fused_conv12_pool_conv21_q", x0, p, ("q1", "sw1", "b1", "q2", "sw2", "b2"))
-    B, H, W, _ = x0.shape
-    H2, W2, r2 = H // 2, W // 2, _pick_rows_even(H) // 2
-    lib = _lib()
-    s = native.stream(x0.device)
-    amax = torch.zeros((B,), dtype=torch.float32, device=x0.device)
-    xq = torch.empty(x0.shape, dtype=torch.int8, device=x0.device)
-    sx = torch.empty((B,), dtype=torch.float32, device=x0.device)
-    native.check(lib.quantize_per_sample_bf16(*map(native.ptr, (x0, amax, xq, sx)), B,
-                                              H * W * 64, s), "quantize_per_sample_bf16")
-    pooled = torch.empty((B, H2, W2, 64), dtype=torch.float32, device=x0.device)
-    s2 = torch.empty((B, H2 // r2), dtype=torch.float32, device=x0.device)
-    out = torch.empty((B, H2, W2, 128), dtype=torch.bfloat16, device=x0.device)
-    native.check(lib.conv12_pool_s8(*map(native.ptr, (xq, sx, p.q1, p.sw1, p.b1, pooled)),
-                                    B, H, W, s), "conv12_pool_s8")
-    native.check(lib.requant_scales(native.ptr(pooled), native.ptr(s2), B, H2, W2, r2, s),
-                 "requant_scales")
-    native.check(lib.conv21_s8(*map(native.ptr, (pooled, s2, p.q2, p.sw2, p.b2, out)),
-                               B, H2, W2, r2, s), "conv21_s8")
+    out, steps = int8_launches(x0, p)
+    for _, launch in steps:
+        launch()
     fused_conv12_pool_conv21_q.launches += 1
     return out
 

@@ -120,15 +120,24 @@ def test_stem_kernel_geometry(cuda_device):
     assert stem.kernel_geometry() == stem.geometry()
 
 
+# #7's requant blocks (rows / 2 pooled rows, tests/test_torch_stem.py
+# replays them on the CPU): two blocks of r2 = 2 across a conv2_1 strip
+# edge (W2 = 72), and four blocks of r2 = 16 over three strips in a batch
+_REQUANT_EDGES = [(1, 12, 144), (2, 128, 272)]
+_REQUANT_EDGE_IDS = ["requant_r2_2", "requant_r2_16"]
+
+
 @pytest.mark.parametrize("shape", [(3, 64, 48), (1, 2, 16), (2, 66, 32), (1, 96, 160),
-                                   *_HOPPER_EDGES],
-                         ids=["odd_batch", "smallest", "rows2_odd_h2", "wide", *_HOPPER_EDGE_IDS])
+                                   *_HOPPER_EDGES, *_REQUANT_EDGES],
+                         ids=["odd_batch", "smallest", "rows2_odd_h2", "wide", *_HOPPER_EDGE_IDS,
+                              *_REQUANT_EDGE_IDS])
 @pytest.mark.parametrize("name", STEM_KERNELS)
 def test_stem_kernel_matches_plain(cuda_device, stem_setup, name, shape):
     """#5/#6: the same bf16 operands summed in another order: at least 90%
     of outputs bit-identical, max |diff| within 1% of the largest.  #7:
     exact int8 products and the plain version's rounding: at least 99%
-    bit-identical, max |diff| within 1% of the largest."""
+    bit-identical, max |diff| within 1% of the largest (and, below, all of
+    them)."""
     B, H, W = shape
     assert stem.conv_pool_supported(H, W)
     fn = getattr(stem, name)
@@ -146,6 +155,24 @@ def test_stem_kernel_matches_plain(cuda_device, stem_setup, name, shape):
     assert (got - ref).abs().max().item() <= 1e-2 * ref.abs().max().item()
     exact = (got == ref).float().mean().item()
     assert exact >= (0.99 if name.endswith("_q") else 0.9)
+
+
+@pytest.mark.parametrize("shape", [(2, 66, 32), (1, 64, 144), *_REQUANT_EDGES],
+                         ids=["requant_r2_1", "requant_2_blocks", *_REQUANT_EDGE_IDS])
+def test_int8_stem_kernel_is_bit_identical(cuda_device, stem_setup, shape):
+    """#7 sums int8 products exactly and rounds every scale, dequant and
+    requant as its plain version does, so the two agree bit for bit; its
+    four launches, run one by one, give that output."""
+    B, H, W = shape
+    g = torch.Generator().manual_seed(6)
+    x0 = torch.relu(torch.randn(B, H, W, 64, generator=g)).to(cuda_device, torch.bfloat16)
+    out, steps = stem.int8_launches(x0, stem_setup)
+    assert [name for name, _ in steps] == ["sample_amax_bf16", "quantize_bf16", "conv12_pool_s8",
+                                           "conv21_s8"]
+    for _, launch in steps:
+        launch()
+    torch.cuda.synchronize()
+    assert torch.equal(out, stem.conv12_pool_conv21_q_plain(x0, stem_setup))
 
 
 def test_stem_kernels_reject_bad_input(cuda_device, stem_setup):

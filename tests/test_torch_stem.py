@@ -25,7 +25,7 @@ from lightly_ocr_tpu.ops.pallas_tail import fused_tail_scores_cs_seam as jseam
 from lightly_ocr_tpu.ops.s2d_stem import s2d_conv12_pool
 from lightly_ocr_tpu_torch.config import Config
 from lightly_ocr_tpu_torch.models.crnn import CRNNet
-from lightly_ocr_tpu_torch.models.layers import init_module
+from lightly_ocr_tpu_torch.models.layers import init_module, int8_conv, int8_scale, quantize_with
 from lightly_ocr_tpu_torch.models.vgg_unet import _VGG_SLICES, VGG_UNet
 from lightly_ocr_tpu_torch.ops import stem
 from lightly_ocr_tpu_torch.serving import batch
@@ -516,13 +516,118 @@ def test_hopper_cut_stitches_to_plain(kernel, shape):
     torch.testing.assert_close(got, ref, rtol=0, atol=0)
 
 
+def _int8_stem_params(seed: int) -> stem.StemParams:
+    """int8 codes in [-3, 3], float32 weight scales and biases (positive
+    biases make relu(bias) != 0 where the input is zero).  conv1_2's channel
+    0 has only negative codes and a large bias, so on the non-negative
+    ``x0`` a pooled column past the image (zeros in, the bias out) would
+    top every row's max if it were counted."""
+    rng = np.random.default_rng(seed)
+
+    def q(cout):
+        return torch.from_numpy(rng.integers(-3, 4, (576, cout)).astype(np.int8))
+
+    def f(n, lo, hi):
+        return torch.from_numpy(rng.uniform(lo, hi, n).astype(np.float32))
+
+    q1, b1 = q(64), f(64, -0.2, 0.5)
+    q1[:, 0], b1[0] = -3, 4.0
+    none = torch.zeros(0)
+    return stem.StemParams(w0=none, b0=none, w1=none, b1=b1, w2=none, b2=f(128, -0.2, 0.5),
+                           q1=q1, sw1=f(64, 2e-3, 8e-3), q2=q(128), sw2=f(128, 2e-3, 8e-3))
+
+
+def _replay_int8(x0, p):
+    """Kernel #7 stitched from its launches' blocks.  The per-sample scale
+    and codes of ``x0``; conv1_2 + pool per (sample, strip, segment) on the
+    int8 window with its halo (zeros outside the image), each pooled row's
+    max taken over the strip's columns inside the image and combined across
+    strips (the atomicMax); then conv2_1 per (sample, strip, requant block of
+    ``r2`` rows): ``s2`` from the maxima of the block's rows and one halo row
+    each side, the block's f32 rows quantized with it, two output rows a
+    step (a block of odd ``r2`` computes one row past it, from zero rows),
+    the rows of the block kept.  Returns (bf16 output, f32 pooled map, row
+    maxima, block scales)."""
+    B, H, W, _ = x0.shape
+    xf = x0.float()
+    sx = stem.scale127(xf.abs().amax(dim=(1, 2, 3), keepdim=True))
+    xq = quantize_with(xf, sx)
+    halo, strip, seg = stem.HALO, stem.STRIP_COLS[64], stem.S8_SEGMENT_ROWS
+    H2, W2 = H // 2, W // 2
+    pooled = torch.full((B, H2, W2, 64), float("nan"))
+    rowmax = torch.zeros(B, H2)
+    for b in range(B):
+        for c0 in range(0, W, strip):
+            for s0 in range(0, H, seg):
+                s1 = min(s0 + seg, H)
+                win = _window(xq[b], s0 - halo, s1 + halo, c0 - halo, c0 + strip + halo)
+                acc = int8_conv(win[None], p.q1)[0].float()
+                y = F.relu(stem._fma(acc, sx[b, 0, 0] * p.sw1, p.b1))
+                y = y.view((s1 - s0) // 2, 2, strip // 2, 2, 64).amax(dim=(1, 3))
+                cc = min(c0 + strip, W) // 2 - c0 // 2
+                pooled[b, s0 // 2:s1 // 2, c0 // 2:c0 // 2 + cc] = y[:, :cc]
+                rowmax[b, s0 // 2:s1 // 2] = torch.maximum(rowmax[b, s0 // 2:s1 // 2],
+                                                           y[:, :cc].amax(dim=(1, 2)))
+    r2, strip = stem._pick_rows_even(H) // 2, stem.STRIP_COLS[128]
+    rows = r2 + r2 % 2  # whole steps of two rows
+    out = torch.full((B, H2, W2, 128), float("nan"))
+    s2 = torch.zeros(B, H2 // r2)
+    for b in range(B):
+        for i, s0 in enumerate(range(0, H2, r2)):
+            s2[b, i] = int8_scale(rowmax[b, max(s0 - 1, 0):s0 + r2 + 1].max())
+            for c0 in range(0, W2, strip):
+                win = _window(pooled[b], s0 - halo, s0 + rows + halo, c0 - halo, c0 + strip + halo)
+                win[r2 + 2:] = 0  # past the block's last halo row: not copied
+                qw = torch.clamp(torch.round(win * (torch.ones(()) / s2[b, i])), -127, 127)
+                acc = int8_conv(qw.to(torch.int8)[None], p.q2)[0].float()
+                y = F.relu(stem._fma(acc, s2[b, i] * p.sw2, p.b2))
+                cc = min(c0 + strip, W2) - c0
+                out[b, s0:s0 + r2, c0:c0 + cc] = y[:r2, :cc]
+    return out.to(torch.bfloat16), pooled, rowmax, s2
+
+
+# r2 = 1 (H = 66: one pooled row a block, the step's second row past it);
+# r2 = 2 with W2 past one conv2_1 strip; two blocks of r2 = 16 across a
+# strip edge; three blocks over two strips; H past two conv1_2 segments
+_INT8_CUT = [(1, 66, 32), (1, 12, 144), (1, 64, 144), (1, 96, 160),
+             (1, 2 * stem.S8_SEGMENT_ROWS + 4, 16)]
+
+
+@pytest.mark.parametrize("shape", _INT8_CUT, ids=["x".join(map(str, s)) for s in _INT8_CUT])
+def test_int8_hopper_cut_stitches_to_plain(shape):
+    """#7 replayed block by block (``_replay_int8``) equals its plain
+    version bit for bit: the pooled rows' maxima are the rows' amax, each
+    block's scale is the plain version's (its rows with a one-row halo),
+    and the stitched output is ``conv12_pool_conv21_q_plain``'s."""
+    B, H, W = shape
+    p = _int8_stem_params(12)
+    rng = np.random.default_rng(H * 1000 + W)
+    x0 = torch.from_numpy(rng.integers(0, 4, (B, H, W, 64)).astype(np.float32)).to(torch.bfloat16)
+    ref = stem.conv12_pool_conv21_q_plain(x0, p)
+    got, pooled, rowmax, s2 = _replay_int8(x0, p)
+    assert not pooled.isnan().any() and torch.equal(rowmax, pooled.amax(dim=(2, 3)))
+    _, want_s2 = stem.requant_windows(pooled, stem._pick_rows_even(H))
+    assert torch.equal(s2, want_s2)
+    assert ref.unique().numel() > 16  # the signal reaches the output
+    assert got.shape == ref.shape
+    torch.testing.assert_close(got, ref, rtol=0, atol=0)
+
+
 def test_hopper_geometry_fits_shared_memory():
-    """A conv3x3_hopper block's weights, bias and ring of input rows fit the
-    232,448 B of shared memory an H100 block may have; segments are whole row pairs (the pool's),
-    strips whole 64-column warpgroup tiles, and the ring holds the step's 4
-    input rows and two steps of 2 in flight."""
+    """A conv3x3_hopper block's weights, bias (int8: and weight scales),
+    ring of input rows (int8 conv2_1: and float32 staging rows) fit the
+    232,448 B of shared memory an H100 block may have, in bf16 and in int8,
+    and two int8 conv1_2 blocks fit an SM;
+    segments are whole row pairs (the pool's), strips whole 64-column
+    warpgroup tiles, the ring holds the step's 4 input rows and two steps of
+    2 in flight, and the staging rows two steps of 2."""
     for cout in (64, 128):
-        assert stem.smem_bytes(cout) <= 232448
+        for s8 in (False, True):
+            assert stem.smem_bytes(cout, s8) <= 232448
         assert stem.SEGMENT_ROWS[cout] % 2 == 0 and stem.STRIP_COLS[cout] % 64 == 0
-    assert stem.RING_ROWS == 4 + 2 * 2 and stem.HALO == 1
-    assert stem.geometry() == (128, 120, 64, 60, 1, 8, 208128, 216576)  # the note in stem.cu
+    # two int8 conv1_2 blocks an SM: 228 KB, 1 KB reserved for each block
+    assert stem.S8_BLOCKS * (stem.smem_bytes(64, s8=True) + 1024) <= 233472
+    assert stem.S8_SEGMENT_ROWS % 2 == 0
+    assert stem.RING_ROWS == 4 + 2 * 2 and stem.STAGE_ROWS == 2 * 2 and stem.HALO == 1
+    # the note in stem.cu
+    assert stem.geometry() == (128, 120, 64, 60, 60, 2, 1, 8, 4, 208128, 216576, 109056, 185344)
