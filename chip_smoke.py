@@ -16,7 +16,10 @@ exits non-zero with the traceback):
    the tail chain alone (#3, the legacy pad+kernel tail) vs its plain
    version on the 64-channel activation formed from the same trunk output;
 3. connected-components kernel vs its plain version, labels exactly equal,
-   on the phase-2 foreground masks and on a 480x320 adversarial spiral;
+   on the phase-2 foreground masks, a 480x320 adversarial spiral and comb,
+   and a batch of 16 480x320 random masks at the percolation threshold;
+   timed around the wrapper and from a CUDA graph (the device alone), and
+   its three launches (strip, seams, flatten) split on the device's clock;
 4. the fused conv1_2 front (``csrc/stem.cu``): kernels #4 (conv1_2 at full
    resolution), #5 (conv1_2 + pool), #6 (+ conv2_1) and #7 (w8a8 #6), each
    vs its plain version on the served model's own conv1_1 activation of the
@@ -97,6 +100,27 @@ def cuda_ms(fn, iters: int = 5, warmup: int = 1) -> float:
     start.record()
     for _ in range(iters):
         fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters: int = 20) -> float:
+    """Mean milliseconds per call of ``fn`` replayed from one CUDA graph of
+    ``iters`` calls: the device's time, without the host's launch work
+    (which ``cuda_ms`` includes where it is the longer)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    graph.replay()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
@@ -538,7 +562,8 @@ def main() -> int:
     native.load("seam_tail", seam_tail._SIG)
     geo = seam_tail.kernel_geometry()
     assert geo == (seam_tail.STRIP_COLS, seam_tail.SEGMENT_ROWS, seam_tail.HALO), geo
-    native.load("cc", cc._SIG)
+    for w in (320, 640):
+        assert cc.kernel_geometry(w) == cc.geometry(w), (w, cc.kernel_geometry(w))
     geo = stem.kernel_geometry()
     assert geo == stem.geometry(), geo
     log(f"phase build: {time.perf_counter() - t0:.2f} s (nvcc {build_s:.2f} s)")
@@ -601,8 +626,11 @@ def main() -> int:
 
     # -- phase 3: connected components kernel vs plain ----------------------
     t0 = time.perf_counter()
+    perc = np.random.default_rng(SEED).random((B, H2, W2)) < 0.59  # site percolation threshold
     cases = {"fg": fg_got.contiguous(),
-             "spiral": torch.from_numpy(cc.spiral_mask(H2, W2)).to(dev)[None].contiguous()}
+             "spiral": torch.from_numpy(cc.spiral_mask(H2, W2)).to(dev)[None].contiguous(),
+             "comb": torch.from_numpy(cc.comb_mask(H2, W2)).to(dev)[None].contiguous(),
+             "percolation": torch.from_numpy(perc).to(dev)}
     cc_err = 0.0
     for name, fg in cases.items():
         lab = cc.label_components(fg)
@@ -615,13 +643,20 @@ def main() -> int:
         log(f"cc {name}: {tuple(fg.shape)} labels equal, {n_comp} components")
     fg = cases["fg"]
     cc_ms = cuda_ms(lambda: cc.label_components(fg), iters=10)
+    cc_graph_ms = graph_ms(lambda: cc.label_components(fg))
     cc_plain_ms = cuda_ms(lambda: cc.label_components_plain(fg), iters=3)
     sp = cases["spiral"]
     cc_spiral_ms = cuda_ms(lambda: cc.label_components(sp), iters=5)
     cc_bytes = fg.numel() * (1 + 4)
     cc_bound = 1e3 * cc_bytes / PEAK_BYTES
     log(f"cc ms: kernel {cc_ms:.3f} plain {cc_plain_ms:.3f} bound {cc_bound:.4f} (bytes); "
-        f"spiral 1x{H2}x{W2} kernel {cc_spiral_ms:.3f}")
+        f"spiral 1x{H2}x{W2} kernel {cc_spiral_ms:.3f}; kernel from a CUDA graph {cc_graph_ms:.4f}")
+    # the split, on the device's clock: the launches up to each phase
+    # replayed from a CUDA graph, less the ones before
+    prefix_ms = [graph_ms(run) for _, run in cc.phase_prefixes(fg)]
+    split = [t - (prefix_ms[i - 1] if i else 0.0) for i, t in enumerate(prefix_ms)]
+    log("cc launches ms: " + ", ".join(f"{name} {t:.4f}" for name, t in zip(cc.PHASES, split))
+        + f" (sum {prefix_ms[-1]:.4f}, CUDA graph)")
     log(f"phase cc: {time.perf_counter() - t0:.2f} s")
 
     # -- phase 4: conv1_2 kernels vs plain ------------------------------------

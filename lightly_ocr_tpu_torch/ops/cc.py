@@ -8,10 +8,16 @@ minimum linear index (``r * W + c``) of its component, background is
 ``H * W``.
 
 :func:`label_components` is the kernel's wrapper: a CPU tensor takes the
-plain version :func:`label_components_plain`, a CUDA tensor launches the
-union-find kernel of ``csrc/cc.cu`` or raises.  Both are exact for every
-mask, so the port needs no convergence check and no escalation; the check
-itself, :func:`labels_converged`, is kept for the tests.
+plain version :func:`label_components_plain`, a CUDA tensor launches
+``csrc/cc.cu`` or raises.  The kernel is three launches: union-find on each
+strip of :func:`strip_rows` full-width rows in shared memory
+(``cc_strip``), the unions across the seams between strips in the label
+map (``cc_seams``), and a flatten of each label to its root
+(``cc_flatten``).  Its geometry is mirrored here (:func:`geometry`, held
+against the library's ``cc_geometry`` by :func:`kernel_geometry`).  Both
+versions are exact for every mask, so the port needs no convergence check
+and no escalation; the check itself, :func:`labels_converged`, is kept for
+the tests.
 """
 from __future__ import annotations
 
@@ -61,8 +67,64 @@ def label_components_plain(fg: torch.Tensor) -> torch.Tensor:
     return torch.where(fg, labels, HW).to(torch.int32)
 
 
+# csrc/cc.cu's geometry (cc_geometry reports the compiled values)
+STRIP_THREADS = 512  # threads of a cc_strip block
+STRIP_PIXELS = 4096  # pixels of a strip, about: rows = this // W
+SMEM_BUDGET = 115712  # shared bytes of a strip block, at most: two blocks an SM
+PHASES = ("strip", "seams", "flatten")  # the kernel's launches, in order
+
+
+def strip_smem(rows: int, W: int) -> int:
+    """Shared bytes of a strip: a foreground word per 32-column row
+    segment, the mask bytes at their address's offset mod 16 (each part
+    rounded up to 16), then two int32 arrays (the parents and the roots of
+    the runs)."""
+    def a16(x):
+        return (x + 15) // 16 * 16
+    return a16(4 * rows * -(-W // 32)) + a16(rows * W + 15) + 8 * rows * W
+
+
+def strip_rows(W: int) -> int:
+    """Rows of a ``cc_strip`` block for maps ``W`` wide: about
+    :data:`STRIP_PIXELS` pixels, at least one row; 0 when one row does not
+    fit the shared-memory budget."""
+    if W <= 0:
+        return 0
+    R = STRIP_PIXELS // W if W < STRIP_PIXELS // 2 else 1
+    return R if strip_smem(R, W) <= SMEM_BUDGET else 0
+
+
+def geometry(W: int) -> tuple[int, ...]:
+    """The wrapper's copy of ``cc_geometry(W)``: (rows, shared bytes,
+    threads, pixels a strip, budget)."""
+    R = strip_rows(W)
+    return (R, strip_smem(R, W) if R else 0, STRIP_THREADS, STRIP_PIXELS, SMEM_BUDGET)
+
+
 _SIG = {"cc_launch": [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 3
-        + [ctypes.c_void_p]}
+        + [ctypes.c_void_p],
+        "cc_phases": [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 4
+        + [ctypes.c_void_p],
+        "cc_geometry": [ctypes.c_int, ctypes.c_void_p]}
+
+
+def kernel_geometry(W: int) -> tuple[int, ...]:
+    """``cc_geometry(W)`` as compiled into the CUDA library (builds it on
+    first use; needs ``nvcc``)."""
+    g = (ctypes.c_int * 5)()
+    native.load("cc", _SIG).cc_geometry(W, g)
+    return tuple(g)
+
+
+def _checked(fg: torch.Tensor) -> tuple[int, int, int]:
+    if fg.device.type != "cuda":
+        raise ValueError(f"label_components: unsupported device {fg.device}")
+    if fg.ndim != 3 or fg.dtype != torch.bool or not fg.is_contiguous():
+        raise ValueError(f"label_components: fg must be contiguous bool [B, H, W], got {fg.dtype} {tuple(fg.shape)}")
+    B, H, W = fg.shape
+    if H * W >= 2**31 or B * H * W == 0 or strip_rows(W) == 0:
+        raise ValueError(f"label_components: unsupported shape {tuple(fg.shape)}")
+    return B, H, W
 
 
 def label_components(fg: torch.Tensor) -> torch.Tensor:
@@ -70,15 +132,9 @@ def label_components(fg: torch.Tensor) -> torch.Tensor:
     (min linear index per component, background ``H * W``)."""
     if fg.device.type == "cpu":
         return label_components_plain(fg)
-    if fg.device.type != "cuda":
-        raise ValueError(f"label_components: unsupported device {fg.device}")
     if fg.ndim == 2:
         return label_components(fg[None])[0]
-    if fg.ndim != 3 or fg.dtype != torch.bool or not fg.is_contiguous():
-        raise ValueError(f"label_components: fg must be contiguous bool [B, H, W], got {fg.dtype} {tuple(fg.shape)}")
-    B, H, W = fg.shape
-    if H * W >= 2**31 or B * H * W == 0:
-        raise ValueError(f"label_components: unsupported shape {tuple(fg.shape)}")
+    B, H, W = _checked(fg)
     lib = native.load("cc", _SIG)
     labels = torch.empty((B, H, W), dtype=torch.int32, device=fg.device)
     err = lib.cc_launch(native.ptr(fg), native.ptr(labels), B, H, W,
@@ -89,6 +145,24 @@ def label_components(fg: torch.Tensor) -> torch.Tensor:
 
 
 label_components.launches = 0
+
+
+def phase_prefixes(fg: torch.Tensor) -> list:
+    """``[(phase, run)]`` for timing the kernel's launches: ``run()`` makes
+    the first launches up to that phase into a fresh label map and returns
+    it, so the split is the differences of their times.  Not counted as
+    launches of :func:`label_components`."""
+    B, H, W = _checked(fg)
+    lib = native.load("cc", _SIG)
+
+    def run(k: int) -> torch.Tensor:
+        labels = torch.empty((B, H, W), dtype=torch.int32, device=fg.device)
+        err = lib.cc_phases(native.ptr(fg), native.ptr(labels), B, H, W, k,
+                            native.stream(fg.device))
+        native.check(err, f"label_components {PHASES[k - 1]}")
+        return labels
+
+    return [(name, lambda k=k: run(k)) for k, name in enumerate(PHASES, 1)]
 
 
 def labels_converged(fg: torch.Tensor, labels: torch.Tensor) -> bool:

@@ -76,24 +76,85 @@ def test_seam_tail_kernel_rejects_bad_input(cuda_device):
                                      dtype=torch.bfloat16), p)  # odd width
 
 
-@pytest.mark.parametrize("case", ["random", "dense", "spiral", "comb", "batch", "empty"])
-def test_cc_kernel_matches_plain(cuda_device, case):
+# the CC kernel's strip edges (tests/test_torch_cc.py -k strip replays its
+# cut on the CPU): one row, one row short of a strip, one strip, one row into
+# the second and into the third, at W = 1, odd widths and the main-path width
+_CC_EDGES = {f"h{name}_w{w}": (2, h(cc.strip_rows(w)), w)
+             for name, h in (("1", lambda R: 1), ("R-1", lambda R: R - 1), ("R", lambda R: R),
+                             ("R+1", lambda R: R + 1), ("2R+1", lambda R: 2 * R + 1))
+             for w in (1, 7, 33, 320)}
+
+
+def _cc_mask(case):
     r = np.random.default_rng(7)
-    mask = {
+    masks = {
         "random": r.random((1, 96, 80)) > 0.45,
         "dense": r.random((2, 480, 320)) > 0.3,
         "spiral": cc.spiral_mask(480, 320)[None],
         "comb": cc.comb_mask(128, 256)[None],
         "batch": r.random((4, 48, 64)) > 0.5,
         "empty": np.zeros((2, 16, 16), bool),
-    }[case]
-    fg = torch.from_numpy(mask).to(cuda_device)
+    }
+    if case in masks:
+        return masks[case]
+    r = np.random.default_rng(8)
+    if case in _CC_EDGES:
+        return r.random(_CC_EDGES[case]) < 0.59  # near the site-percolation threshold
+    return {
+        "comb_480x320": lambda: cc.comb_mask(480, 320)[None],
+        "b2_640x640": lambda: r.random((2, 640, 640)) < 0.59,
+        "all_fg": lambda: np.ones((3, 3 * cc.strip_rows(17), 17), bool),
+        "percolation_b16": lambda: r.random((16, 480, 320)) < 0.59,
+        "checkerboard": lambda: (np.indices((3 * cc.strip_rows(45) + 5, 45)).sum(0) % 2 == 0)[None],
+    }[case]()
+
+
+@pytest.mark.parametrize("case", ["random", "dense", "spiral", "comb", "comb_480x320", "batch",
+                                  "empty", "b2_640x640", "all_fg", "percolation_b16",
+                                  "checkerboard", *_CC_EDGES])
+def test_cc_kernel_matches_plain(cuda_device, case):
+    fg = torch.from_numpy(_cc_mask(case)).to(cuda_device)
     n = cc.label_components.launches
     got = cc.label_components(fg)
     torch.cuda.synchronize()
     assert cc.label_components.launches == n + 1
     assert torch.equal(got, cc.label_components_plain(fg))
     assert cc.labels_converged(fg, got)
+
+
+def test_cc_phase_prefixes(cuda_device):
+    """The timing split's prefixes: the strip launch alone labels each strip
+    on its own (the replay's first step), all three give the labels, and
+    none counts as a launch of the wrapper."""
+    R = cc.strip_rows(64)
+    mask = cc.comb_mask(3 * R + 5, 64)[None]
+    fg = torch.from_numpy(mask).to(cuda_device)
+    n = cc.label_components.launches
+    (_, strip), _, (_, full) = cc.phase_prefixes(fg)
+    got_strip, got = strip(), full()
+    torch.cuda.synchronize()
+    assert cc.label_components.launches == n
+    assert torch.equal(got, cc.label_components_plain(fg))
+    for r0 in range(0, mask.shape[1], R):
+        piece = fg[:, r0:r0 + R]
+        want = torch.where(piece, cc.label_components_plain(piece) + r0 * 64, mask.shape[1] * 64)
+        assert torch.equal(got_strip[:, r0:r0 + R], want), r0
+
+
+def test_cc_kernel_geometry(cuda_device):
+    """``cc_geometry`` of the library equals ``ops/cc.py``'s mirror, for
+    every map width of the canvas buckets, odd widths, the widths where a
+    strip becomes one row, and up to widths where no row fits."""
+    for W in (*range(32, 641, 32), 1, 7, 33, 2047, 2048, 4000, 12000, 12900, 13000, 23000):
+        assert cc.kernel_geometry(W) == cc.geometry(W), W
+
+
+def test_cc_kernel_rejects_bad_input(cuda_device):
+    with pytest.raises(ValueError):
+        cc.label_components(torch.zeros(1, 4, 4, dtype=torch.uint8, device=cuda_device))
+    with pytest.raises(ValueError):  # no strip row fits in shared memory
+        cc.label_components(torch.zeros(1, 1, cc.SMEM_BUDGET // 5, dtype=torch.bool,
+                                        device=cuda_device))
 
 
 @pytest.fixture
