@@ -41,13 +41,28 @@ exits non-zero with the traceback):
    bf16 ``tail,stem`` (kernel #4, seam tail and CC must launch), and in the
    int8 ``tail,cpool2`` plan (kernel #7, seam tail and CC must launch); at
    least one receipt must get a box in each;
-7. a per-stage breakdown of one dispatch of each of the three served plans.
+7. a per-stage breakdown of one dispatch of each of the three served plans;
+8. ``engines``: the per-image path a user reads real checkpoints with.  The
+   same random full-width weights (CRAFT; CRNN with TPS and Attention) are
+   saved with ``torch.save`` as ``CRAFT.pth`` (keys with DataParallel's
+   ``module.`` prefix) and ``CRNN.pth`` in a temporary directory;
+   ``pipeline.serveModel`` builds its engines on the card from there
+   (float32, the plain ``VGG_UNet`` and kernel #2 for CC, as the JAX
+   engines) and answers 4 receipts through ``predict`` and
+   ``get_text_detailed``; the same receipts go through the port's engines
+   on the CPU, and the card must match them: mean rect IoU >= 0.99 and
+   equal texts; ms per receipt on the card;
+9. ``ctc_batched``: ``BatchedServeModel`` with the CTC head
+   (``prediction="CTC"``, ``transform="None"``, the demo checkpoint's
+   recognizer) in bf16 ``tail,s2d`` (kernels #1, #2 and #5 must launch)
+   behind ``InferenceWorker``, 2 dispatches at b16; receipts/s.
 
 Then one JSON line with each kernel's numbers, and as the last line
 ``{"ok": true, "device": {...}}``.  TF32 is switched OFF for float32 matmuls
 and convolutions (``torch.backends.cuda.matmul.allow_tf32 = False``,
 ``torch.backends.cudnn.allow_tf32 = False``), so the plain versions
-accumulate in full float32.  Without a CUDA device the script exits 2 and
+accumulate in full float32 and the float32 engines on the card can be held
+to the same engines on the CPU.  Without a CUDA device the script exits 2 and
 prints no result.
 """
 from __future__ import annotations
@@ -65,6 +80,9 @@ BATCH, BOXES = 16, 32
 RECEIPT_H, RECEIPT_W = 600, 400
 DISPATCHES = 5  # timed dispatches of the int8 cpool2 plan
 BF16_DISPATCHES = 3  # timed dispatches of the bf16 default plan
+CTC_DISPATCHES = 2  # timed dispatches of the bf16 CTC plan
+ENGINE_RECEIPTS = 4  # receipts through the per-image engines, card and CPU
+ENGINE_IOU = 0.99  # least mean rect IoU of the card's engines against the CPU's
 SEED = 0
 # H100 SXM data-sheet peaks (dense): bf16 and int8 tensor cores, HBM3
 PEAK_BF16_FLOPS = 989e12
@@ -440,6 +458,74 @@ def plan_dispatches(cfg, det_sd, rec_sd, args) -> dict:
     return out
 
 
+def rect_iou(a, b) -> float:
+    r0, c0 = max(a[0], b[0]), max(a[1], b[1])
+    r1, c1 = min(a[2], b[2]), min(a[3], b[3])
+    inter = max(0, r1 - r0) * max(0, c1 - c0)
+    union = (a[2] - a[0]) * (a[3] - a[1]) + (b[2] - b[0]) * (b[3] - b[1]) - inter
+    return inter / max(union, 1e-9)
+
+
+def engines_phase(cfg, det_sd, rec_sd, imgs, smi: str) -> dict:
+    """The per-image engines from ``.pth`` files on the card against the
+    same engines on the CPU; returns the launch counts of the card's run."""
+    import os
+    import shutil
+    import tempfile
+
+    from lightly_ocr_tpu_torch import pipeline
+
+    tmp = tempfile.mkdtemp(prefix="lightly_ocr_pth_")
+    try:
+        torch.save({"module." + k: v for k, v in det_sd.items()}, os.path.join(tmp, "CRAFT.pth"))
+        torch.save(rec_sd, os.path.join(tmp, "CRNN.pth"))
+        e_cfg = cfg.replace(pretrained=tmp)
+        model = pipeline.serveModel(config=e_cfg, thresh=-1.0, device="cuda")
+        cpu = pipeline.prepModel(e_cfg, device="cpu")
+    finally:
+        shutil.rmtree(tmp)
+    receipts = imgs[:ENGINE_RECEIPTS]
+    det, rec = model.detector, model.recognizer
+
+    def per_receipt(fn, args):
+        """(results, ms per receipt on the host clock between synchronises)"""
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = [fn(*a) for a in args]
+        torch.cuda.synchronize()
+        return out, 1e3 * (time.perf_counter() - t) / len(args)
+
+    pipeline.get_text_detailed(receipts[0], det, rec)  # warm
+    reset_launch_counts()
+    card, ms = per_receipt(lambda im: pipeline.get_text_detailed(im, det, rec), [(im,) for im in receipts])
+    launches = launch_counts()
+    rects, det_ms = per_receipt(det.detect_rects, [(im,) for im in receipts])
+    grays = [pipeline.gray_from_rgb(im) for im in receipts]
+    _, rec_ms = per_receipt(rec.process_batch, list(zip(grays, rects)))
+    predicted = [model.predict(im) for im in receipts]
+    host = [pipeline.get_text_detailed(im, *cpu) for im in receipts]
+    ious, same_text, n = [], 0, 0
+    for got, want, pred in zip(card, host, predicted):
+        assert len(got) == len(want), f"engines: {len(got)} boxes on the card, {len(want)} on the CPU"
+        # predict reads getText's {confidence: text}, where equal confidences collapse
+        assert pred == list({it["confidence"]: it["text"] for it in got}.values()), \
+            "engines: predict disagrees with get_text_detailed"
+        ious += [rect_iou(g["rect"], w["rect"]) for g, w in zip(got, want)]
+        same_text += sum(g["text"] == w["text"] for g, w in zip(got, want))
+        n += len(got)
+    iou = float(np.mean(ious)) if ious else 0.0
+    log(f"engines: {len(receipts)} receipts, {n} boxes; card vs CPU: mean rect IoU {iou:.6f} "
+        f"(min {ENGINE_IOU}), texts equal {same_text}/{n}; sample {card[0][:3]}")
+    log(f"engines ms per receipt (card, float32): get_text_detailed {ms:.2f} "
+        f"(CRAFT.detect_rects {det_ms:.2f}, CRNN.process_batch {rec_ms:.2f}) on {smi}; "
+        f"launches {launches}")
+    assert n > 0, "engines: no box on any receipt"
+    assert iou >= ENGINE_IOU, "engines: the card's rects differ from the CPU's"
+    assert same_text == n, "engines: the card's texts differ from the CPU's"
+    assert launches["cc"] == len(receipts), f"engines: CC kernel not in every detect: {launches}"
+    return launches
+
+
 def module_ms(net, names, fn, iters: int = 3) -> dict:
     """Milliseconds per call of ``fn`` spent inside each named submodule
     of ``net``, from CUDA events recorded by forward hooks."""
@@ -722,6 +808,25 @@ def main() -> int:
         + json.dumps({k: round(v, 3) for k, v in stages.items()}))
     del model
     log(f"phase stages int8: {time.perf_counter() - t0:.2f} s")
+
+    # -- phase 8: the per-image engines from .pth files, card vs CPU --------
+    t0 = time.perf_counter()
+    engines_phase(e2e_cfg, det_sd, rec_sd, imgs, smi)
+    log(f"phase engines: {time.perf_counter() - t0:.2f} s")
+
+    # -- phase 9: batched serving with the CTC head ---------------------------
+    t0 = time.perf_counter()
+    c_cfg = e2e_cfg.replace(prediction="CTC", transform="None")
+    c_rec_sd = init_module(CRNNet(c_cfg), torch.Generator().manual_seed(SEED + 1)).state_dict()
+    model, c_launches, c_rps, c_answers = serve(c_cfg, det_sd, c_rec_sd, imgs, CTC_DISPATCHES,
+                                                "bf16 tail,s2d CTC")
+    for k in ("conv12_pool", "seam_tail", "cc"):
+        assert c_launches[k] == CTC_DISPATCHES, f"{k} not in every CTC dispatch: {c_launches}"
+    assert model.recognizer.cfg.prediction == "CTC"
+    assert all(isinstance(t, str) for a in c_answers for t in a)
+    log(f"e2e bf16 tail,s2d CTC: {c_rps:.2f} receipts/s on {smi}")
+    del model
+    log(f"phase ctc_batched: {time.perf_counter() - t0:.2f} s")
 
     # launches: each kernel's count over the timed run of the path that
     # drives it (the bf16 default plan for the seam tail, CC and #5, the bf16

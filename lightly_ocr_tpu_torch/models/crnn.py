@@ -1,10 +1,11 @@
-"""CRNN recognizer: TPS -> ResNet -> BiLSTM x2 -> attention (port).
+"""CRNN recognizer: TPS -> ResNet -> BiLSTM x2 -> CTC or attention (port).
 
 Port of ``lightly_ocr_tpu/models/crnn.py`` (reference ``ocr/model.py:
-64-118``) for the slice the serving path runs: ``transform`` None or TPS,
-``sequence`` None or biLSTM, ``prediction="Attention"`` with greedy decode.
+64-118``) for inference: ``transform`` None or TPS, ``sequence`` None or
+biLSTM, ``prediction`` CTC (a linear head named ``Prediction``, so its
+``weight``/``bias`` keys are the reference's) or Attention (greedy decode).
 ``quant=True`` runs the ResNet's convs as w8a8 :class:`QuantConv`; TPS,
-BiLSTM and attention stay float, as in the JAX package.
+BiLSTM and the heads stay float, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -21,10 +22,6 @@ from lightly_ocr_tpu_torch.models.tps import TPS_STN
 class CRNNet(nn.Module):
     def __init__(self, cfg: Config, quant: bool = False):
         super().__init__()
-        if cfg.prediction != "Attention":
-            raise NotImplementedError(
-                "the port has the Attention head only; CTC is not ported yet"
-            )
         self.cfg = cfg
         cin = cfg.derived_input_channel
         self.Transformation = (
@@ -37,11 +34,15 @@ class CRNNet(nn.Module):
         if cfg.sequence == "biLSTM":
             self.SequenceModeling = SeqModeling(n, cfg.hidden_size)
             n = cfg.hidden_size
-        self.Prediction = Attention(n, cfg.hidden_size, cfg.derived_num_classes,
-                                    cfg.num_steps)
+        if cfg.prediction == "CTC":
+            self.Prediction = nn.Linear(n, cfg.derived_num_classes)
+        else:
+            self.Prediction = Attention(n, cfg.hidden_size, cfg.derived_num_classes,
+                                        cfg.num_steps)
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:
-        """[B, H, W, C] in [-1, 1] -> greedy logits [B, num_steps, classes]."""
+        """[B, H, W, C] in [-1, 1] -> logits: per frame [B, W', classes]
+        (CTC), or of the greedy decode [B, num_steps, classes]."""
         p = next(self.parameters())
         x = images.permute(0, 3, 1, 2).to(p.dtype)
         if self.Transformation is not None:

@@ -37,10 +37,15 @@ def get_det_boxes(
     low_text: float = 0.4,
     max_boxes: int = 256,
     num_angles: int = 128,
-) -> tuple[torch.Tensor, torch.Tensor]:
+    return_cid: bool = False,
+):
     """[B, H, W] region/affinity maps + CC labels (min linear index per
     component, background H*W) -> (boxes [B, K, 4, 2] (x, y) heatmap
-    corners clockwise, valid [B, K] bool)."""
+    corners clockwise, valid [B, K] bool).
+
+    ``return_cid`` adds a third output, the JAX ``DetBoxes.cid``: [B, H, W]
+    int64, each pixel's box slot in ``[0, K)``, ``K`` where its component
+    has no box (poly mode reads it)."""
     B, H, W = textmap.shape
     HW, K, dev = H * W, max_boxes, textmap.device
     K2 = 2 * K
@@ -181,4 +186,23 @@ def get_det_boxes(
     roll = (torch.arange(4, device=dev) + start) % 4
     corners = torch.gather(corners, 2, roll[..., None].expand(B, K, 4, 2))
     corners = torch.where(valid[..., None, None], corners, 0.0)
-    return corners, valid
+    if not return_cid:
+        return corners, valid
+    cid_px = torch.where(matched, torch.gather(slot, 1, cid), K).view(B, H, W)
+    return corners, valid, cid_px
+
+
+def boxes_to_rects(boxes: torch.Tensor, valid: torch.Tensor,
+                   ratio_w: float, ratio_h: float) -> torch.Tensor:
+    """Boxes [K, 4, 2] -> axis-aligned int32 rects [K, 4] (row0, col0,
+    row1, col1) in original-image coordinates: corners scaled by the x2 net
+    ratio and ``ratio_w``/``ratio_h`` in float32, truncated to int, then
+    min/max per axis (``det_utils.py:259-265``, ``net.py:93-97``); invalid
+    rows are 0."""
+    scale = torch.tensor([ratio_w * 2.0, ratio_h * 2.0], dtype=torch.float32,
+                         device=boxes.device)
+    as_int = (boxes.float() * scale).to(torch.int32)
+    x0, y0 = as_int[..., 0].amin(1), as_int[..., 1].amin(1)
+    x1, y1 = as_int[..., 0].amax(1), as_int[..., 1].amax(1)
+    rects = torch.stack([y0, x0, y1, x1], 1)
+    return torch.where(valid[:, None], rects, 0)

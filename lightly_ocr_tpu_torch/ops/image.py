@@ -8,6 +8,10 @@
   antialias: ``F.interpolate(align_corners=False, antialias=False)``), paste
   top-left onto a zero canvas, ImageNet normalisation
   (``imgproc.py:19-35``).
+* ``rgb_to_gray`` — luma with PIL's ``L`` weights.
+* ``resize_normalize`` — the recognizer feed of one whole crop: PIL
+  bicubic with antialias, saturated, scaled to [-1, 1]
+  (``dataset.py:43-47``), as the matmul crop of :mod:`.crop` computes it.
 """
 from __future__ import annotations
 
@@ -17,8 +21,11 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from lightly_ocr_tpu_torch.ops.crop import crop_resize_normalize_matmul
+
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_VAR = (0.229, 0.224, 0.225)
+LUMA = (0.299, 0.587, 0.114)  # ITU-R 601-2, PIL's "L" conversion
 
 
 def normalize_mean_variance(img: torch.Tensor) -> torch.Tensor:
@@ -106,3 +113,21 @@ def make_detector_input(img: torch.Tensor, plan: ResizePlan) -> torch.Tensor:
     )
     canvas[: plan.target_h, : plan.target_w] = content
     return normalize_mean_variance(canvas)
+
+
+def rgb_to_gray(img: torch.Tensor) -> torch.Tensor:
+    """[..., 3] RGB -> [...] float32 luma (PIL ``L`` weights)."""
+    w = torch.tensor(LUMA, dtype=torch.float32, device=img.device)
+    return img.float() @ w
+
+
+def resize_normalize(crops: torch.Tensor, height: int = 32, width: int = 100) -> torch.Tensor:
+    """[B, H, W] or [B, H, W, 1] gray crops in [0, 255] -> [B, height,
+    width, 1] in [-1, 1]: each whole crop through the matmul crop's PIL
+    bicubic weights (antialiased on downscales), saturated to [0, 255], then
+    ``(x / 255 - 0.5) / 0.5``."""
+    if crops.ndim == 4:
+        crops = crops[..., 0]
+    B, H, W = crops.shape
+    whole = torch.tensor([0.0, 0.0, H, W], device=crops.device).expand(B, 1, 4)
+    return crop_resize_normalize_matmul(crops.float(), whole, height, width)[:, 0]

@@ -132,6 +132,12 @@ def conv_pool_supported(h: int, w: int) -> bool:
     return h % 2 == 0 and w % 16 == 0 and _pick_rows_even(h) != 0
 
 
+def s2d_supported(h: int, w: int) -> bool:
+    """The JAX package's ``s2d_stem.s2d_supported``: the space-to-depth stem
+    pairs source rows and columns, so it takes every even canvas."""
+    return h % 2 == 0 and w % 2 == 0
+
+
 def _oihw(w_km: torch.Tensor) -> torch.Tensor:
     """[9 * I, O] tap-major -> OIHW float32."""
     O = w_km.shape[1]

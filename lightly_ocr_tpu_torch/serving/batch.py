@@ -4,8 +4,9 @@
 seam-tail kernel (region and affinity maps) -> the connected-components
 kernel -> batched box extraction -> rects mapped to ORIGINAL-image
 coordinates -> bicubic matmul crops from the original-resolution gray
-images -> one CRNN dispatch over ``B * M`` crops -> greedy attention decode
--> the vectorised host string decode.  Only the last step runs on the host.
+images -> one CRNN dispatch over ``B * M`` crops -> greedy decode -> the
+vectorised host string decode (CTC collapse or attention EOS stops).  Only
+the last step runs on the host.
 
 The detector runs the plan the JAX package serves on its accelerator
 (``_fused_kernel_plan``), read from ``Config.fused_stages`` and
@@ -27,7 +28,10 @@ The detector runs the plan the JAX package serves on its accelerator
 * ``s2d``: the JAX package's space-to-depth stem is a TPU layout rewrite
   of conv1_1 + conv1_2 + pool1 with both BNs folded; in bf16 the port
   computes the same roundings as ``s2d_prefix`` (conv1_1) and kernel #5
-  (conv1_2 + pool), then the trunk resumed at conv2_1.  In float32 the
+  (conv1_2 + pool), then the trunk resumed at conv2_1; on an even canvas
+  that kernel #5 does not take (a width that is not a multiple of 16), the
+  same folded conv1_2 + pool runs in stock ops (``conv12_pool_plain``), as
+  the JAX package's ``s2d_conv12_pool`` is XLA there too.  In float32 the
   fold changes nothing but round-off, and the plain slice1 runs.
 
 The canvas geometry picks among these per dispatch, as in the JAX package;
@@ -51,6 +55,7 @@ from lightly_ocr_tpu_torch.ops.cc import label_components
 from lightly_ocr_tpu_torch.ops.crop import crop_resize_normalize_matmul
 from lightly_ocr_tpu_torch.ops.detection import get_det_boxes
 from lightly_ocr_tpu_torch.ops.image import (
+    LUMA,
     make_detector_input,
     pick_canvas_bucket,
     pick_gray_bucket,
@@ -58,18 +63,20 @@ from lightly_ocr_tpu_torch.ops.image import (
 )
 from lightly_ocr_tpu_torch.ops.seam_tail import fused_tail_scores_cs_seam, tail_params
 from lightly_ocr_tpu_torch.ops.stem import (
+    conv12_pool_plain,
     conv_pool_supported,
     fused_conv12_pool,
     fused_conv12_pool_conv21,
     fused_conv12_pool_conv21_q,
     fused_stem_conv,
     s2d_prefix,
+    s2d_supported,
     stem_params,
     stem_supported,
 )
-from lightly_ocr_tpu_torch.text.converters import AttnLabelConverter
+from lightly_ocr_tpu_torch.text.converters import build_converter
 
-_LUMA = np.asarray([0.299, 0.587, 0.114], np.float32)
+_LUMA = np.asarray(LUMA, np.float32)
 log = logging.getLogger(__name__)
 
 
@@ -110,6 +117,7 @@ class BatchedOCR:
         self.front, self.resume = None, None
         self.prefix = lambda canvases: self.det_net.stem_prefix(canvases)
         self.front_supported = conv_pool_supported
+        self.s2d = False
         if self.use_tail and "stem" in stages and not cfg.quant_int8:
             self.front, self.resume = fused_stem_conv, "stem"
             self.front_supported = lambda h, w: stem_supported(h)
@@ -122,6 +130,7 @@ class BatchedOCR:
         elif self.use_tail and "s2d" in stages and dtype == torch.bfloat16:
             self.front, self.resume = fused_conv12_pool, "pool"
             self.prefix = lambda canvases: s2d_prefix(canvases, self.stem)
+            self.s2d = True
         det = VGG_UNet(quant=cfg.quant_int8)
         det.load_state_dict(det_state, strict=True)
         # fold the kernels' BNs from the float32 master weights, then cast
@@ -134,7 +143,7 @@ class BatchedOCR:
         rec = CRNNet(cfg, quant=cfg.quant_int8)
         rec.load_state_dict(rec_state, strict=True)
         self.rec_net = to_serving(rec, self.device, dtype).eval()
-        self.converter = AttnLabelConverter(cfg.character)
+        self.converter = build_converter(cfg.prediction, cfg.character)
         self._chartab = np.asarray(self.converter.character, dtype="<U1")
 
     def detector_scores(self, canvases: torch.Tensor):
@@ -143,13 +152,25 @@ class BatchedOCR:
         if not self.use_tail:
             y, _ = self.det_net(canvases)
             return y[..., 0].float(), y[..., 1].float()
-        if self.front is not None and self.front_supported(*canvases.shape[1:3]):
+        front = self.front_for(*canvases.shape[1:3])
+        if front is not None:
             x0 = self.prefix(canvases)
-            y_lo, t = self.det_net.trunk(self.front(x0, self.stem), resume=self.resume)
+            y_lo, t = self.det_net.trunk(front(x0, self.stem), resume=self.resume)
         else:
             y_lo, t = self.det_net.trunk(canvases)
         y = fused_tail_scores_cs_seam(self.tail, y_lo, t)  # [B, H2, 2, W2]
         return y[:, :, 0], y[:, :, 1]
+
+    def front_for(self, h: int, w: int):
+        """The conv1_2 front that the plan runs on an ``h x w`` canvas: its
+        kernel where the kernel takes the canvas; on the ``s2d`` plan, any
+        other even canvas takes the stock-ops fold; else None (the plain
+        slice1)."""
+        if self.front is None:
+            return None
+        if self.front_supported(h, w):
+            return self.front
+        return conv12_pool_plain if self.s2d and s2d_supported(h, w) else None
 
     def boxes(self, tmaps, lmaps, inv_ratio, extents):
         """Score maps -> (rects [B, M, 4] as (r0, c0, r1, c1) in ORIGINAL-
@@ -187,7 +208,7 @@ class BatchedOCR:
     def recognize(self, gray, rects):
         """gray [B, H0, W0] and rects [B, M, 4] -> (pred_idx [B, M, T],
         confidence [B, M] f32): bicubic crops, one CRNN dispatch over the
-        B * M crops, greedy attention decode."""
+        B * M crops, greedy decode of its head."""
         B, M = rects.shape[:2]
         idx, conf = decode_crops(self.rec_net, self.crops(gray, rects), self.cfg)
         return idx.reshape(B, M, -1), conf.float().reshape(B, M)
@@ -259,24 +280,35 @@ class BatchedOCR:
 
     def decode(self, out: dict) -> list[list[dict]]:
         """Device outputs -> per image [{text, confidence, rect}]; the
-        character lookup and EOS stops are vectorised over [B, M, T]."""
+        character lookup, the CTC collapse and the EOS stops are vectorised
+        over [B, M, T]."""
         valid = out["valid"].cpu().numpy()
         idx = out["pred_idx"].cpu().numpy()
         conf = out["confidence"].cpu().numpy()
         rects = out["rects"].cpu().numpy()
         B, M, T = idx.shape
+        ctc = self.cfg.prediction == "CTC"
         chars = np.ascontiguousarray(self._chartab[idx])
-        full = chars.view(f"<U{T}")[..., 0]  # [B, M] full strings
-        eos = idx == self.converter.eos_index
-        stop = np.where(eos.any(-1), eos.argmax(-1), T)
-        # '[GO]' (index 0) is a multi-char token the '<U1' table truncates;
-        # rows that emit it before EOS take the converter's own decode
-        go_before_stop = ((idx == 0) & (np.arange(T) < stop[..., None])).any(-1)
+        if ctc:
+            # greedy collapse: keep frames that are not blank and differ
+            # from the frame before
+            prev = np.concatenate([np.full((B, M, 1), -1, idx.dtype), idx[..., :-1]], -1)
+            keep = (idx != 0) & (idx != prev)
+        else:
+            full = chars.view(f"<U{T}")[..., 0]  # [B, M] full strings
+            eos = idx == self.converter.eos_index
+            stop = np.where(eos.any(-1), eos.argmax(-1), T)
+            # '[GO]' (index 0) is a multi-char token the '<U1' table
+            # truncates; rows that emit it before EOS take the converter's
+            # own decode
+            go_before_stop = ((idx == 0) & (np.arange(T) < stop[..., None])).any(-1)
         results = []
         for b in range(B):
             items = []
             for m in np.nonzero(valid[b])[0]:
-                if go_before_stop[b, m]:
+                if ctc:
+                    text = "".join(chars[b, m][keep[b, m]])
+                elif go_before_stop[b, m]:
                     text = self.converter.decode_trimmed(idx[b, m][None])[0]
                 else:
                     text = full[b, m][: stop[b, m]]

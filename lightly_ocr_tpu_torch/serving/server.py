@@ -3,8 +3,9 @@ half of ``lightly_ocr_tpu/serving/server.py``).
 
 :class:`InferenceWorker` drains a bounded request queue in batches on one
 consumer thread; :class:`BatchedServeModel` answers each batch through
-:meth:`BatchedOCR.run_images`.  The WSGI front end (``create_app``,
-``run_server``), which decodes uploads with PIL, is not ported yet.
+:meth:`BatchedOCR.run_images`, with the weights of the per-image engines.
+The WSGI front end (``create_app``, ``run_server``), which decodes uploads
+with PIL, is not ported yet.
 """
 from __future__ import annotations
 
@@ -95,19 +96,27 @@ class InferenceWorker:
 class BatchedServeModel:
     """serveModel-compatible wrapper over :class:`BatchedOCR`.
 
-    ``det_state``/``rec_state`` are the detector's and recognizer's state
-    dicts (the port has no checkpoint loader yet; see
-    :func:`lightly_ocr_tpu_torch.weights.state_dict_from_variables`)."""
+    Builds the per-image engines (``engines.CRAFT``/``CRNN``, which read
+    ``CRAFT.pth``/``CRNN.pth`` from ``config.pretrained`` or fall back to
+    seeded random weights) and serves their weights batched, as the JAX
+    package's ``BatchedServeModel`` does.  ``det_state``/``rec_state``
+    override the detector's and recognizer's weights with state dicts."""
 
     def __init__(self, config=None, thresh: float = 0.7,
-                 boxes_per_image: int = 32, *, det_state: dict, rec_state: dict,
-                 device="cuda", dtype: torch.dtype = torch.bfloat16):
+                 boxes_per_image: int = 32, *, det_state: dict | None = None,
+                 rec_state: dict | None = None, device="cuda",
+                 dtype: torch.dtype = torch.bfloat16):
         from lightly_ocr_tpu_torch.config import Config
-        from lightly_ocr_tpu_torch.serving.batch import BatchedOCR
+        from lightly_ocr_tpu_torch.engines import CRAFT, CRNN
+        from lightly_ocr_tpu_torch.serving.batch import BatchedOCR, resolve_device
 
+        device = resolve_device(device)
         self.config = config or Config()
         self.thresh = float(thresh)
-        self.ocr = BatchedOCR(self.config, det_state, rec_state,
+        det = CRAFT(self.config, state_dict=det_state, device=device)
+        rec = CRNN(self.config, state_dict=rec_state, device=device)
+        self.detector, self.recognizer = det, rec
+        self.ocr = BatchedOCR(self.config, det.state_dict, rec.state_dict,
                               boxes_per_image=boxes_per_image, dtype=dtype,
                               device=device)
 

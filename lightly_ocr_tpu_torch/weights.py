@@ -1,4 +1,14 @@
-"""JAX ``variables`` tree -> the port's PyTorch ``state_dict``.
+"""Weights of the port: reference ``.pth`` files, and the JAX ``variables``
+tree -> the port's PyTorch ``state_dict``.
+
+:func:`load_state_dict_file` reads a reference-format checkpoint
+(``CRAFT.pth``/``CRNN.pth``, e.g. as ``export_torch_checkpoints.py`` writes
+them) for a strict ``load_state_dict``: a DataParallel ``module.`` prefix is
+stripped as the JAX importer does (``utils/torch_import.py:49-54``,
+reference ``ocr/net.py:24-34``), and so are the bookkeeping entries that
+the port recomputes rather than loads (BatchNorm ``num_batches_tracked``;
+the TPS grid constants ``inv_delta_C``/``P_hat``), which the JAX importer
+also ignores.  Every other key must match.
 
 The port's modules carry the reference torch names (``basenet.slice1.0``,
 ``Prediction.attention_cell.rnn``, ...), and so does the JAX package's flax
@@ -54,3 +64,23 @@ def state_dict_from_variables(variables: Mapping[str, Any]) -> dict:
         key = ".".join([*module_path, _LEAF.get(leaf, leaf)])
         out[key] = torch.tensor(arr)
     return out
+
+
+_RECOMPUTED = ("num_batches_tracked", "inv_delta_C", "P_hat")
+
+
+def strip_module_prefix(state_dict: Mapping[str, Any]) -> dict:
+    """Remove DataParallel ``module.`` key prefixes if present (the rule of
+    the JAX importer: judged on the first key)."""
+    keys = list(state_dict)
+    if keys and keys[0].startswith("module"):
+        return {k.split(".", 1)[1]: v for k, v in state_dict.items()}
+    return dict(state_dict)
+
+
+def load_state_dict_file(path: str) -> dict:
+    """A ``.pth`` state dict -> ``{key: float32 Tensor}`` on the CPU, read
+    with ``torch.load(weights_only=True)``, ready for ``strict=True``."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    return {k: torch.as_tensor(v).float() for k, v in strip_module_prefix(sd).items()
+            if not k.endswith(_RECOMPUTED)}

@@ -28,6 +28,8 @@ mods = [m.name for m in pkgutil.walk_packages(lightly_ocr_tpu_torch.__path__,
                                               "lightly_ocr_tpu_torch.")]
 for m in mods:
     importlib.import_module(m)
+for m in ("engines", "pipeline", "ops.poly", "ops.ctc"):
+    assert "lightly_ocr_tpu_torch." + m in mods, m
 import chip_smoke
 from lightly_ocr_tpu_torch.serving.server import BatchedServeModel, InferenceWorker
 assert "jax" not in sys.modules or sys.modules["jax"] is None

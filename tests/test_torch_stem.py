@@ -11,6 +11,7 @@ plain versions in ``test_torch_kernels_cuda.py`` and ``chip_smoke.py``.
 """
 import logging
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -136,7 +137,7 @@ def states():
 
 
 FRONTS = ("fused_stem_conv", "fused_conv12_pool", "fused_conv12_pool_conv21",
-          "fused_conv12_pool_conv21_q")
+          "fused_conv12_pool_conv21_q", "conv12_pool_plain")
 
 
 def _record_fronts(monkeypatch, called):
@@ -145,30 +146,43 @@ def _record_fronts(monkeypatch, called):
         monkeypatch.setattr(batch, name, lambda x0, p, fn=fn, name=name: (called.append(name), fn(x0, p))[1])
 
 
-@pytest.mark.parametrize("stages,quant,want", [
-    ("tail,stem", False, "fused_stem_conv"),
-    ("tail,stem,cpool,cpool2,s2d", False, "fused_stem_conv"),  # stem wins
-    ("tail,stem,cpool2", True, "fused_conv12_pool_conv21_q"),  # int8 drops stem
-    ("tail,stem", True, None),
-    ("tail,cpool2", True, "fused_conv12_pool_conv21_q"),
-    ("tail,cpool2", False, "fused_conv12_pool_conv21"),
-    ("tail,cpool", True, "fused_conv12_pool"),
-    ("tail,cpool,cpool2", False, "fused_conv12_pool_conv21"),
-    ("tail,s2d", True, None),
-    ("cpool2", True, None),  # no tail: the plain detector
+def _plan(stages, quant, want, width=96, dtype=torch.float32):
+    """A case of ``test_plan_follows_config``; the 64x96 float32 cases keep
+    the ids they had before the canvas and dtype were parameters."""
+    tag = "" if (width, dtype) == (96, torch.float32) else f"-w{width}-{str(dtype).split('.')[1]}"
+    return pytest.param(stages, quant, want, width, dtype, id=f"{stages}-{quant}-{want}{tag}")
+
+
+@pytest.mark.parametrize("stages,quant,want,width,dtype", [
+    _plan("tail,stem", False, "fused_stem_conv"),
+    _plan("tail,stem,cpool,cpool2,s2d", False, "fused_stem_conv"),  # stem wins
+    _plan("tail,stem,cpool2", True, "fused_conv12_pool_conv21_q"),  # int8 drops stem
+    _plan("tail,stem", True, None),
+    _plan("tail,cpool2", True, "fused_conv12_pool_conv21_q"),
+    _plan("tail,cpool2", False, "fused_conv12_pool_conv21"),
+    _plan("tail,cpool", True, "fused_conv12_pool"),
+    _plan("tail,cpool,cpool2", False, "fused_conv12_pool_conv21"),
+    _plan("tail,s2d", True, None),
+    _plan("cpool2", True, None),  # no tail: the plain detector
+    # bf16 s2d takes every even canvas, as the JAX package's s2d stem does:
+    # kernel #5 where it takes the width, else the same fold in stock ops
+    _plan("tail,s2d", False, "fused_conv12_pool", 96, torch.bfloat16),
+    _plan("tail,s2d", False, "conv12_pool_plain", 72, torch.bfloat16),
+    _plan("tail,cpool", False, None, 72, torch.bfloat16),  # kernel plans: plain slice1
 ])
-def test_plan_follows_config(states, monkeypatch, stages, quant, want):
+def test_plan_follows_config(states, monkeypatch, stages, quant, want, width, dtype):
     """``fused_stages`` and ``quant_int8`` pick the kernel as the JAX
     ``_fused_kernel_plan`` does; plans without one run no stem kernel."""
     called = []
     _record_fronts(monkeypatch, called)
     ocr = BatchedOCR(Config(**_CFG, fused_stages=stages, quant_int8=quant), *states,
-                     boxes_per_image=4, dtype=torch.float32, device="cpu")
+                     boxes_per_image=4, dtype=dtype, device="cpu")
     assert ocr.det_net.basenet.slice2["17"].quantized == quant
-    canv = torch.from_numpy(np.random.default_rng(0).standard_normal((1, 64, 96, 3)).astype(np.float32))
+    assert stem.s2d_supported(64, width) and stem.conv_pool_supported(64, width) == (width % 16 == 0)
+    canv = torch.from_numpy(np.random.default_rng(0).standard_normal((1, 64, width, 3)).astype(np.float32))
     with torch.no_grad():
         tm, lm = ocr.detector_scores(canv)
-    assert tm.shape == lm.shape == (1, 32, 48) and tm.dtype == torch.float32
+    assert tm.shape == lm.shape == (1, 32, width // 2) and tm.dtype == torch.float32
     assert called == ([want] if want else [])
 
 
@@ -420,6 +434,42 @@ def test_demo_checkpoint_plan_matches_jax(demo_setup, plan):
     bj, vj = _boxes(c, ref)
     bt, vt = _boxes(c, got)
     assert vj.sum() >= 6
+    np.testing.assert_array_equal(vt, vj)
+    np.testing.assert_array_equal(bt, bj)
+
+
+def test_demo_checkpoint_s2d_plan_at_unsupported_width(demo_setup, monkeypatch):
+    """The default plan (bf16 ``tail,s2d``) on a canvas whose width is 8 mod
+    16, which kernel #5 does not take, on the demo checkpoint's learned maps
+    (a 64x72 window of the receipt canvas around two words): the front is
+    ``s2d_prefix`` and then the folded conv1_2 + pool in stock ops, which
+    rounds as the JAX package's ``s2d_conv12_pool`` does (at least 99%
+    bit-identical, within one bf16 step of the largest output); the scores
+    meet the bf16 gate against the JAX package's bf16 detector (max |diff|
+    below 0.02) with identical boxes."""
+    v, cfg, rec, canv = demo_setup
+    canvas = canv[:, 180:244, 16:88].contiguous()
+    assert stem.s2d_supported(64, 72) and not stem.conv_pool_supported(64, 72)
+    called = []
+    _record_fronts(monkeypatch, called)
+    ocr = BatchedOCR(cfg, state_dict_from_variables(v), rec, dtype=torch.bfloat16, device="cpu")
+    with torch.no_grad():
+        tm, lm = ocr.detector_scores(canvas)
+        front = ocr.front_for(64, 72)(ocr.prefix(canvas), ocr.stem).float().numpy()
+    assert called == ["conv12_pool_plain"] * 2
+    ref_front = np.asarray(s2d_conv12_pool(v, jnp.asarray(canvas.numpy(), jnp.bfloat16)), np.float32)
+    assert front.shape == ref_front.shape == (1, 32, 36, 64)
+    assert np.mean(front == ref_front) >= 0.99
+    assert np.abs(front - ref_front).max() <= 2.0 ** (np.floor(np.log2(np.abs(ref_front).max())) - 7)
+    got = torch.stack([tm, lm], 2).numpy()
+    ys, _ = jax.jit(JVGG_UNet(dtype=jnp.bfloat16).apply)(v, jnp.asarray(canvas.numpy()))
+    ref = np.moveaxis(np.asarray(ys, np.float32), 3, 2)
+    assert got.shape == ref.shape == (1, 32, 2, 36)
+    assert np.abs(ref).max() > 0.9
+    assert np.abs(got - ref).max() < 0.02
+    bj, vj = _boxes(cfg, ref)
+    bt, vt = _boxes(cfg, got)
+    assert vj.sum() >= 2
     np.testing.assert_array_equal(vt, vj)
     np.testing.assert_array_equal(bt, bj)
 
