@@ -55,7 +55,29 @@ exits non-zero with the traceback):
 9. ``ctc_batched``: ``BatchedServeModel`` with the CTC head
    (``prediction="CTC"``, ``transform="None"``, the demo checkpoint's
    recognizer) in bf16 ``tail,s2d`` (kernels #1, #2 and #5 must launch)
-   behind ``InferenceWorker``, 2 dispatches at b16; receipts/s.
+   behind ``InferenceWorker``, 2 dispatches at b16; receipts/s;
+10. ``http``: the HTTP front end in this process (``create_app`` behind
+    ``make_server`` on 127.0.0.1, a free port, the threaded server class of
+    ``run_server``), receipts sent as PNG encoded here (stdlib ``zlib``; the
+    card's machine has no PIL): (a) the per-image float32 ``serveModel`` of
+    phase 8 behind ``create_app``'s default worker, every answer equal to
+    ``predict`` on the decoded upload, kernel #2 in every request; (b) bf16
+    ``tail,s2d`` ``BatchedServeModel`` behind ``InferenceWorker``, a burst of
+    64 uploads from 16 client threads, each batch the worker formed replayed
+    through ``predict_many`` with identical texts, kernels #1, #2 and #5 in
+    every dispatch, requests/s and p50/p95 latency; (c) ``GET /``, a ``.gif``
+    name, no file field and a corrupt PNG answer as the wire API says; and
+    the numpy PNG decode timed on a 600x400 receipt for each row filter;
+11. ``beam``: bf16 ``tail,s2d`` with the attention beam (W = 8) and with the
+    CTC beam, each with a seeded LM prior (``.npy`` in a temporary
+    directory): receipts/s at b16, kernels #1, #2 and #5 in every dispatch,
+    the ``recognize`` stage against greedy's, and on a recorded dispatch the
+    beam on the card against the beam on the CPU in float32 (top beam's
+    labels equal, scores within 1e-4);
+12. ``cli``: ``python -m lightly_ocr_tpu_torch.serving.server --batched
+    --bf16 --decode beam --lm <prior>`` as a subprocess on 127.0.0.1 and a
+    free port: ``GET /`` and one PNG upload answer, its log names ``cuda``,
+    and it ends without a traceback.
 
 Then one JSON line with each kernel's numbers, and as the last line
 ``{"ok": true, "device": {...}}``.  TF32 is switched OFF for float32 matmuls
@@ -67,10 +89,22 @@ prints no result.
 """
 from __future__ import annotations
 
+import contextlib
+import copy
+import io
 import json
+import os
+import queue
+import shutil
+import struct
 import subprocess
 import sys
+import tempfile
+import threading
 import time
+import urllib.error
+import urllib.request
+import zlib
 
 import numpy as np
 import torch
@@ -83,6 +117,11 @@ BF16_DISPATCHES = 3  # timed dispatches of the bf16 default plan
 CTC_DISPATCHES = 2  # timed dispatches of the bf16 CTC plan
 ENGINE_RECEIPTS = 4  # receipts through the per-image engines, card and CPU
 ENGINE_IOU = 0.99  # least mean rect IoU of the card's engines against the CPU's
+HTTP_BURST, HTTP_CLIENTS = 64, 16  # uploads in the batched burst, client threads
+BEAM_WIDTH = 8
+BEAM_DISPATCHES = 2  # timed dispatches of each beam plan
+BEAM_TOL = 1e-4  # top-beam score, card vs CPU (float32, TF32 off)
+CLI_DEADLINE_S = 120  # for the server subprocess to print "serving on"
 SEED = 0
 # H100 SXM data-sheet peaks (dense): bf16 and int8 tensor cores, HBM3
 PEAK_BF16_FLOPS = 989e12
@@ -466,9 +505,9 @@ def rect_iou(a, b) -> float:
     return inter / max(union, 1e-9)
 
 
-def engines_phase(cfg, det_sd, rec_sd, imgs, smi: str) -> dict:
+def engines_phase(cfg, det_sd, rec_sd, imgs, smi: str):
     """The per-image engines from ``.pth`` files on the card against the
-    same engines on the CPU; returns the launch counts of the card's run."""
+    same engines on the CPU; returns the card's ``serveModel``."""
     import os
     import shutil
     import tempfile
@@ -523,7 +562,7 @@ def engines_phase(cfg, det_sd, rec_sd, imgs, smi: str) -> dict:
     assert iou >= ENGINE_IOU, "engines: the card's rects differ from the CPU's"
     assert same_text == n, "engines: the card's texts differ from the CPU's"
     assert launches["cc"] == len(receipts), f"engines: CC kernel not in every detect: {launches}"
-    return launches
+    return model
 
 
 def module_ms(net, names, fn, iters: int = 3) -> dict:
@@ -613,6 +652,332 @@ def stage_times(ocr, imgs) -> dict:
         res = ocr.postprocess(tm, lm, gray, inv, ext)
         _, out["host_decode"] = host_ms(lambda: ocr.decode(res))
     return out
+
+
+def png_bytes(img: np.ndarray, filt: int = 2) -> bytes:
+    """RGB uint8 [H, W, 3] -> 8-bit RGB PNG bytes, every row filtered with
+    ``filt`` (0 None, 1 Sub, 2 Up, 3 Average, 4 Paeth); stdlib ``zlib`` and
+    ``struct`` (the card's machine has no PIL)."""
+    H, W, _ = img.shape
+    x = img.reshape(H, W * 3).astype(np.int16)
+    up = np.vstack([np.zeros((1, W * 3), np.int16), x[:-1]])
+    left = np.hstack([np.zeros((H, 3), np.int16), x[:, :-3]])
+    upleft = np.hstack([np.zeros((H, 3), np.int16), up[:, :-3]])
+    if filt == 4:
+        p = left + up - upleft
+        pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - upleft)
+        pred = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, upleft))
+    else:
+        pred = [0 * x, left, up, (left + up) // 2][filt]
+    raw = np.hstack([np.full((H, 1), filt, np.uint8), ((x - pred) % 256).astype(np.uint8)])
+
+    def chunk(kind: bytes, body: bytes) -> bytes:
+        return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body))
+
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", W, H, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(raw.tobytes())) + chunk(b"IEND", b""))
+
+
+def multipart(filename: str, content: bytes, field: str = "file") -> tuple[bytes, str]:
+    boundary = "chipsmoke7c1f"
+    head = (f"--{boundary}\r\nContent-Disposition: form-data; name=\"{field}\"; "
+            f"filename=\"{filename}\"\r\nContent-Type: application/octet-stream\r\n\r\n").encode()
+    return head + content + f"\r\n--{boundary}--\r\n".encode(), f"multipart/form-data; boundary={boundary}"
+
+
+def http_call(url: str, body: bytes | None = None, ctype: str | None = None,
+              timeout: float = 300.0) -> tuple[int, dict, float]:
+    """One request -> (HTTP status, JSON payload, seconds on the host clock)."""
+    req = urllib.request.Request(url, data=body, method="GET" if body is None else "POST",
+                                 headers={"Content-Type": ctype} if ctype else {})
+    t = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            status, raw = r.status, r.read()
+    except urllib.error.HTTPError as e:  # 4xx/5xx still carry the JSON body
+        status, raw = e.code, e.read()
+    return status, json.loads(raw), time.perf_counter() - t
+
+
+@contextlib.contextmanager
+def served(app):
+    """``app`` behind ``make_server`` on 127.0.0.1 and a free port, with the
+    threaded server class of ``run_server``; yields the base URL, then
+    stops the server and the app's worker."""
+    from wsgiref.simple_server import WSGIRequestHandler, make_server
+
+    from lightly_ocr_tpu_torch.serving.server import ThreadingWSGIServer
+
+    class Quiet(WSGIRequestHandler):
+        def log_message(self, *args):  # one line a request would flood stderr
+            pass
+
+    httpd = make_server("127.0.0.1", 0, app, server_class=ThreadingWSGIServer, handler_class=Quiet)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    try:
+        yield f"http://127.0.0.1:{httpd.server_port}"
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=10)
+        app.worker.close()
+    assert not thread.is_alive() and not app.worker.thread.is_alive(), "server threads did not stop"
+
+
+def http_phase(cfg, det_sd, rec_sd, imgs, engine_model, smi: str) -> dict:
+    """Phase ``http``: (a) the per-image model behind ``create_app``'s
+    default worker, (b) a burst into the batched model, (c) the error
+    paths, and the front end's host costs.  Returns numbers for the log."""
+    from lightly_ocr_tpu_torch.serving import server
+    from lightly_ocr_tpu_torch.serving.upload import decode_png, decode_upload
+
+    tmp = tempfile.mkdtemp(prefix="lightly_ocr_http_")
+    pngs = [png_bytes(im) for im in imgs]
+    out = {}
+    try:
+        # the front end's host work per upload: multipart parse, PNG decode by filter
+        body, ctype = multipart("r.png", pngs[0])
+        env = {"CONTENT_TYPE": ctype, "CONTENT_LENGTH": str(len(body))}
+        t = time.perf_counter()
+        for _ in range(10):
+            server._parse_multipart({**env, "wsgi.input": io.BytesIO(body)})
+        out["multipart_ms"] = 1e3 * (time.perf_counter() - t) / 10
+        decode_ms = {}
+        for filt, name in enumerate(("none", "sub", "up", "average", "paeth")):
+            data = png_bytes(imgs[0], filt)
+            t = time.perf_counter()
+            got = decode_png(data)
+            decode_ms[name] = 1e3 * (time.perf_counter() - t)
+            assert np.array_equal(got, imgs[0]), f"png decode ({name}) differs from the receipt"
+        out["decode_ms"] = decode_ms
+        log(f"http front end on the host (600x400 RGB receipt, {len(body)} bytes as Up-filtered PNG): "
+            f"multipart parse {out['multipart_ms']:.3f} ms; numpy PNG decode ms by row filter "
+            + ", ".join(f"{k} {v:.2f}" for k, v in decode_ms.items()) + f" (host of {smi})")
+
+        # (a) per-image float32 engines behind the default worker
+        app = server.create_app(engine_model, upload_folder=tmp)
+        with served(app) as base:
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            answers = [http_call(base + "/api", *multipart(f"r{i}.png", pngs[i]))
+                       for i in range(ENGINE_RECEIPTS)]
+            a_launches = launch_counts()
+        n_texts = 0
+        for i, (status, payload, _) in enumerate(answers):
+            assert status == 200 and payload["status"] == "OK", (status, payload)
+            decoded = decode_upload(pngs[i])
+            assert np.array_equal(decoded, imgs[i]), "the upload did not decode to the receipt"
+            want = engine_model.predict(decoded)
+            assert payload["results"] == {str(k): t for k, t in enumerate(want)}, \
+                f"http (a): request {i} answered otherwise than predict"
+            n_texts += len(want)
+        assert n_texts > 0, "http (a): no text in any answer"
+        assert a_launches["cc"] == ENGINE_RECEIPTS, f"http (a): CC not in every request: {a_launches}"
+        ms_a = [1e3 * a[2] for a in answers]
+        log(f"http (a) per-image float32 serveModel: {ENGINE_RECEIPTS} uploads answered as predict "
+            f"({n_texts} texts); ms per request {np.mean(ms_a):.2f} (first {ms_a[0]:.2f}); "
+            f"launches {a_launches} on {smi}")
+
+        # (b) a burst into the batched bf16 model; the worker's batches recorded
+        model = server.BatchedServeModel(cfg, thresh=-1.0, boxes_per_image=BOXES, device="cuda",
+                                         det_state=det_sd, rec_state=rec_sd)
+        # warm every batch shape the worker can form (BatchedOCR pads to a
+        # power of two); the first call of a shape is the cold cost
+        cold_ms = {}
+        b = 1
+        while b <= BATCH:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            model.predict_many(imgs[:b])
+            torch.cuda.synchronize()
+            cold_ms[b] = round(1e3 * (time.perf_counter() - t), 1)
+            b *= 2
+        log(f"http (b) first call of each batch shape, ms: {cold_ms} on {smi}")
+        batches = []
+
+        def recorded(images):
+            texts = model.predict_many(images)
+            batches.append((list(images), texts))
+            return texts
+
+        app = server.create_app(model, upload_folder=tmp, worker=server.InferenceWorker(recorded))
+        with served(app) as base:
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            results = [None] * HTTP_BURST
+
+            def client(k):
+                for j in range(k, HTTP_BURST, HTTP_CLIENTS):
+                    results[j] = http_call(base + "/api", *multipart(f"b{j}.png", pngs[j % len(pngs)]))
+
+            threads = [threading.Thread(target=client, args=(k,)) for k in range(HTTP_CLIENTS)]
+            t = time.perf_counter()
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(timeout=600)
+            wall = time.perf_counter() - t
+            assert not any(th.is_alive() for th in threads), "http (b): a client hung"
+            b_launches = launch_counts()
+            # (c) the wire API's other answers, on the card's server
+            checks = {"GET /": (http_call(base + "/"), 200, {"status": "online"}),
+                      "gif": (http_call(base + "/api", *multipart("anim.gif", b"GIF89a")), 404,
+                              {"status": "badInput"}),
+                      "no file field": (http_call(base + "/api", *multipart("r.png", pngs[0], "other")),
+                                        403, {"status": "noInput"}),
+                      "corrupt png": (http_call(base + "/api", *multipart("r.png", pngs[0][:5000])), 404,
+                                      {"status": "badInput"})}
+        for name, ((status, payload, _), want_status, want) in checks.items():
+            assert status == want_status and payload == want, f"http (c) {name}: {status} {payload}"
+        statuses = [r[0] for r in results]
+        assert statuses == [200] * HTTP_BURST, f"http (b): statuses {statuses}"
+        sizes = [len(b[0]) for b in batches]
+        assert sum(sizes) == HTTP_BURST, sizes
+        for k in ("seam_tail", "conv12_pool", "cc"):
+            assert b_launches[k] == len(batches), f"http (b): {k} not in every dispatch: {b_launches}"
+        # every answer is one the worker's batches gave, and each batch replays identically
+        answered = sorted(tuple(r[1]["results"].values()) for r in results)
+        assert answered == sorted(tuple(t) for _, texts in batches for t in texts), \
+            "http (b): the answers are not the worker's batch outputs"
+        for images, texts in batches:
+            assert model.predict_many(images) == texts, "http (b): a batch replayed differently"
+        lat = np.array([1e3 * r[2] for r in results])
+        out.update(rps=HTTP_BURST / wall, p50=float(np.percentile(lat, 50)),
+                   p95=float(np.percentile(lat, 95)), sizes=sizes)
+        log(f"http (b) bf16 tail,s2d batched: {HTTP_BURST} uploads from {HTTP_CLIENTS} client threads "
+            f"in {wall:.3f} s = {out['rps']:.2f} requests/s; latency p50 {out['p50']:.1f} ms "
+            f"p95 {out['p95']:.1f} ms max {lat.max():.1f} ms; batches the worker formed {sizes}; "
+            f"each replayed identically; launches {b_launches} on {smi}")
+        log("http (c): GET / online, .gif 404 badInput, no file field 403 noInput, "
+            "corrupt PNG 404 badInput")
+        del model
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def beam_phase(cfg, det_sd, rec_sd, c_rec_sd, imgs, prior_path: str, greedy_rps: dict,
+               smi: str) -> None:
+    """Phase ``beam``: the attention and the CTC beam (W = ``BEAM_WIDTH``)
+    with the LM prior at ``prior_path``, served in bf16 ``tail,s2d``."""
+    from lightly_ocr_tpu_torch.ops.ctc import ctc_beam_search_decode
+    from lightly_ocr_tpu_torch.serving.batch import BatchedOCR
+
+    heads = {"attention": (cfg.replace(attn_decode="beam", beam_width=BEAM_WIDTH,
+                                       ctc_lm_path=prior_path), rec_sd),
+             "ctc": (cfg.replace(prediction="CTC", transform="None", ctc_decode="beam",
+                                 beam_width=BEAM_WIDTH, ctc_lm_path=prior_path), c_rec_sd)}
+    for name, (b_cfg, r_sd) in heads.items():
+        label = f"bf16 tail,s2d {name} beam W={BEAM_WIDTH} + LM"
+        model, launches, rps, answers = serve(b_cfg, det_sd, r_sd, imgs, BEAM_DISPATCHES, label)
+        for k in ("conv12_pool", "seam_tail", "cc"):
+            assert launches[k] == BEAM_DISPATCHES, f"beam {name}: {k} not in every dispatch: {launches}"
+        ocr = model.ocr
+        assert ocr.lm is not None and all(isinstance(t, str) for a in answers for t in a)
+        greedy = BatchedOCR(b_cfg.replace(attn_decode="greedy", ctc_decode="greedy", ctc_lm_path=""),
+                            det_sd, r_sd, boxes_per_image=BOXES, device="cuda")
+        feats = {}
+        hook = ocr.rec_net.Prediction.register_forward_pre_hook(
+            lambda mod, args: feats.__setitem__("x", args[0]))
+        with torch.inference_mode():
+            (cb, gb), idxs = next(iter(ocr.group(imgs).items()))
+            canv, gray, inv, ext = ocr.prepare([imgs[i] for i in idxs], cb, gb)
+            tm, lm = ocr.detector_scores(canv)
+            rects, _ = ocr.boxes(tm, lm, inv, ext)
+            beam_ms = cuda_ms(lambda: ocr.recognize(gray, rects), iters=3)
+            greedy_ms = cuda_ms(lambda: greedy.recognize(gray, rects), iters=3)
+            x = ocr.rec_net(ocr.crops(gray, rects))  # CTC: the logits; attention: the hook keeps its input
+            hook.remove()
+            if name == "ctc":
+                x = x.float()
+
+                def beam(x, lm):
+                    labels, _, scores = ctc_beam_search_decode(x, BEAM_WIDTH, lm=lm)
+                    return labels[:, 0], scores[:, 0]
+            else:
+                x = feats["x"].float()
+                nets = {d: copy.deepcopy(ocr.rec_net.Prediction).float().to(d) for d in ("cuda", "cpu")}
+
+                def beam(x, lm):
+                    tokens, scores = nets[x.device.type](x, BEAM_WIDTH, lm)
+                    return tokens[:, 0], scores[:, 0]
+            prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
+            with prof:
+                card = beam(x, ocr.lm)
+                torch.cuda.synchronize()
+            kern = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+            n_kernels = sum(e.count for e in kern)
+            top = sorted(kern, key=lambda e: e.device_time_total, reverse=True)[:5]
+            beam_only_ms = cuda_ms(lambda: beam(x, ocr.lm), iters=3)
+            host = beam(x.cpu(), ocr.lm.cpu())
+        same = (card[0].cpu() == host[0]).all(-1)
+        err = (card[1].cpu() - host[1]).abs().max().item()
+        log(f"beam {name}: {rps:.2f} receipts/s at b{BATCH} ({greedy_rps[name]:.2f} greedy); "
+            f"recognize ms, {x.shape[0]} crops: beam + LM {beam_ms:.3f}, greedy {greedy_ms:.3f}; "
+            f"the beam alone on its {'logits' if name == 'ctc' else 'sequence features'} "
+            f"{beam_only_ms:.3f} ms, {n_kernels} CUDA kernels (torch.profiler); on {smi}")
+        log(f"beam {name} kernels by device time (torch.profiler, one call): "
+            + "; ".join(f"{e.key[:60]} x{e.count} {e.device_time_total / 1e3:.3f} ms" for e in top)
+            + f" on {smi}")
+        log(f"beam {name} card vs CPU (float32, TF32 off): top beam labels equal "
+            f"{int(same.sum())}/{same.numel()}, max |score diff| {err:.3e} (tol {BEAM_TOL}); "
+            f"on {smi}; sample {answers[0][:4]}")
+        assert bool(same.all()), f"beam {name}: the card's top beams differ from the CPU's"
+        assert err <= BEAM_TOL, f"beam {name}: the card's scores differ from the CPU's"
+        del model, greedy
+
+
+def cli_phase(prior_path: str, png: bytes, smi: str) -> None:
+    """Phase ``cli``: the server's entry point as users start it."""
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = tempfile.mkdtemp(prefix="lightly_ocr_cli_")  # its upload folder and log
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(filter(None, [root, os.environ.get("PYTHONPATH")]))}
+    cmd = [sys.executable, "-m", "lightly_ocr_tpu_torch.serving.server", "--batched", "--bf16",
+           "--decode", "beam", "--lm", prior_path, "--host", "127.0.0.1", "--port", str(port)]
+    err_path = os.path.join(work, "stderr.log")
+    t0 = time.perf_counter()
+    with open(err_path, "w") as err:
+        proc = subprocess.Popen(cmd, cwd=work, env=env, stdout=subprocess.PIPE, stderr=err, text=True)
+    try:
+        lines: queue.Queue = queue.Queue()
+        threading.Thread(target=lambda: [lines.put(ln) for ln in proc.stdout], daemon=True).start()
+        ready = None
+        while ready is None and time.perf_counter() - t0 < CLI_DEADLINE_S:
+            try:
+                line = lines.get(timeout=1.0)
+            except queue.Empty:
+                assert proc.poll() is None, f"cli: the server exited with {proc.returncode}"
+                continue
+            if line.startswith("serving on"):
+                ready = line.strip()
+        assert ready == f"serving on 127.0.0.1:{port}", f"cli: no 'serving on' line ({ready})"
+        start_s = time.perf_counter() - t0
+        status, payload, get_s = http_call(f"http://127.0.0.1:{port}/")
+        assert status == 200 and payload == {"status": "online"}, (status, payload)
+        status, payload, post_s = http_call(f"http://127.0.0.1:{port}/api", *multipart("r.png", png))
+        assert status == 200 and payload["status"] == "OK" and isinstance(payload["results"], dict), \
+            (status, payload)
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=30)
+    with open(err_path) as f:
+        stderr = f.read()
+    shutil.rmtree(work, ignore_errors=True)
+    plan = [ln for ln in stderr.splitlines() if "device cuda" in ln]
+    log(f"cli: {' '.join(cmd[1:4])} ... ready in {start_s:.2f} s; GET / {1e3 * get_s:.1f} ms; "
+        f"first PNG upload {1e3 * post_s:.1f} ms, {len(payload['results'])} texts, on {smi}; log: {plan}")
+    assert "Traceback" not in stderr, "cli: traceback in the server's stderr:\n" + stderr[-4000:]
+    assert plan, "cli: the server's log does not name the cuda device:\n" + stderr[-4000:]
 
 
 def main() -> int:
@@ -811,7 +1176,7 @@ def main() -> int:
 
     # -- phase 8: the per-image engines from .pth files, card vs CPU --------
     t0 = time.perf_counter()
-    engines_phase(e2e_cfg, det_sd, rec_sd, imgs, smi)
+    engine_model = engines_phase(e2e_cfg, det_sd, rec_sd, imgs, smi)
     log(f"phase engines: {time.perf_counter() - t0:.2f} s")
 
     # -- phase 9: batched serving with the CTC head ---------------------------
@@ -827,6 +1192,31 @@ def main() -> int:
     log(f"e2e bf16 tail,s2d CTC: {c_rps:.2f} receipts/s on {smi}")
     del model
     log(f"phase ctc_batched: {time.perf_counter() - t0:.2f} s")
+
+    # -- phase 10: the HTTP front end ----------------------------------------
+    t0 = time.perf_counter()
+    http_phase(e2e_cfg, det_sd, rec_sd, imgs, engine_model, smi)
+    del engine_model
+    log(f"phase http: {time.perf_counter() - t0:.2f} s")
+
+    # -- phases 11-12: beam decoding with an LM prior; the server's CLI ------
+    lm_dir = tempfile.mkdtemp(prefix="lightly_ocr_lm_")
+    try:
+        # a charset-space [n+1, n+1] log-prior from the seed (rows are
+        # log-probabilities, weight 0.4), as scripts/build_lm_prior.py writes one
+        prior_path = os.path.join(lm_dir, "prior.npy")
+        n = len(e2e_cfg.character)
+        rows = np.random.default_rng(SEED).dirichlet(np.ones(n + 1), size=n + 1)
+        np.save(prior_path, (0.4 * np.log(rows)).astype(np.float32))
+        t0 = time.perf_counter()
+        beam_phase(e2e_cfg, det_sd, rec_sd, c_rec_sd, imgs, prior_path,
+                   {"attention": rps, "ctc": c_rps}, smi)
+        log(f"phase beam: {time.perf_counter() - t0:.2f} s")
+        t0 = time.perf_counter()
+        cli_phase(prior_path, png_bytes(imgs[0]), smi)
+        log(f"phase cli: {time.perf_counter() - t0:.2f} s")
+    finally:
+        shutil.rmtree(lm_dir, ignore_errors=True)
 
     # launches: each kernel's count over the timed run of the path that
     # drives it (the bf16 default plan for the seam tail, CC and #5, the bf16

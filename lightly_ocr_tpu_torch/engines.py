@@ -31,7 +31,7 @@ import torch
 
 from lightly_ocr_tpu_torch.config import Config
 from lightly_ocr_tpu_torch.models.crnn import CRNNet
-from lightly_ocr_tpu_torch.models.decode import decode_crops
+from lightly_ocr_tpu_torch.models.decode import decode_crops, load_lm_prior
 from lightly_ocr_tpu_torch.models.layers import init_module, to_serving
 from lightly_ocr_tpu_torch.models.vgg_unet import VGG_UNet
 from lightly_ocr_tpu_torch.ops.cc import label_components
@@ -224,17 +224,22 @@ class CRNN(_Engine):
                  dtype: torch.dtype = torch.float32, device="cuda"):
         super().__init__(cfg, state_dict, model_path, seed, dtype, device)
         self.converter = build_converter(self.cfg.prediction, self.cfg.character)
+        self.lm = load_lm_prior(self.cfg, self.device)  # None without ctc_lm_path
 
     def _build(self):
         return CRNNet(self.cfg, quant=self.cfg.quant_int8)
 
     def decode(self, idx: np.ndarray) -> list[str]:
         if self.cfg.prediction == "CTC":
+            if self.cfg.ctc_decode == "beam":
+                # beam labels are final: collapsing again would eat
+                # genuine double letters
+                return self.converter.decode_labels(idx)
             return self.converter.decode_padded(idx)
         return self.converter.decode_trimmed(idx)
 
     def _read(self, crops: torch.Tensor, n: int) -> tuple[list[str], np.ndarray]:
-        idx, conf = decode_crops(self.net, crops, self.cfg)
+        idx, conf = decode_crops(self.net, crops, self.cfg, self.lm)
         return self.decode(idx[:n].cpu().numpy()), conf[:n].float().cpu().numpy()
 
     @torch.inference_mode()

@@ -1,17 +1,21 @@
-"""Bahdanau attention decoder, greedy (port of ``models/attention.py``).
+"""Bahdanau attention decoder: greedy, greedy with an LM prior, and beam
+search (port of ``lightly_ocr_tpu/models/attention.py``).
 
 Per step, as ``AttentionCell`` (reference ``ocr/modules/attention.py:
 38-88``): ``e = score(tanh(i2h(feats) + h2h(h)))``, ``alpha = softmax_T(e)``,
 ``context = alpha^T feats``, ``LSTMCell([context; onehot(prev)], (h, c))``,
 ``logits = generator(h)``, and the argmax feeds the next step.  ``i2h(feats)``
-is step-invariant and computed once.  Beam search and the LM prior are not
-ported yet.
+is step-invariant and computed once.  The JAX package runs these loops in
+XLA (no Pallas kernel), so stock PyTorch ops serve here.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+_NEG = -1.0e30
+_EOS = 1
 
 
 class AttentionCell(nn.Module):
@@ -22,6 +26,18 @@ class AttentionCell(nn.Module):
         self.score = nn.Linear(hidden, 1, bias=False)
         self.rnn = nn.LSTMCell(n_in + num_classes, hidden)
 
+    def step(self, feats, proj, h, c, prev, num_classes: int):
+        """One decode step for states ``h``, ``c`` [..., H] attending over
+        ``feats``/``proj`` [..., T, n_in/H] (broadcast over leading dims)
+        with previous tokens ``prev`` [...] -> new (h, c)."""
+        e = self.score(torch.tanh(proj + self.h2h(h)[..., None, :]))
+        context = (torch.softmax(e, dim=-2) * feats).sum(-2)
+        onehot = F.one_hot(prev, num_classes).to(feats.dtype)
+        lead = h.shape[:-1]
+        h, c = self.rnn(torch.cat([context, onehot], -1).reshape(-1, context.shape[-1] + num_classes),
+                        (h.reshape(-1, h.shape[-1]), c.reshape(-1, c.shape[-1])))
+        return h.reshape(*lead, -1), c.reshape(*lead, -1)
+
 
 class Attention(nn.Module):
     def __init__(self, n_in: int, hidden: int, num_classes: int,
@@ -31,8 +47,19 @@ class Attention(nn.Module):
         self.attention_cell = AttentionCell(n_in, hidden, num_classes)
         self.generator = nn.Linear(hidden, num_classes)
 
-    def forward(self, feats: torch.Tensor) -> torch.Tensor:
-        """[B, T, n_in] -> greedy-decode logits [B, num_steps, classes]."""
+    def forward(self, feats: torch.Tensor, beam_width: int | None = None,
+                lm: torch.Tensor | None = None):
+        """[B, T, n_in] encoder states ->
+
+        * greedy: logits [B, num_steps, classes] of the argmax-fed decode;
+          with ``lm`` (a [classes, classes] log-prior in attention index
+          space), ``lm[prev]`` is added to each step's float32 logits before
+          the argmax feedback and in the emitted scores;
+        * ``beam_width`` W: (tokens [B, W, num_steps], scores [B, W] float32),
+          best-first, as :meth:`_beam_decode`.
+        """
+        if beam_width is not None:
+            return self._beam_decode(feats, int(beam_width), lm)
         cell = self.attention_cell
         B = feats.shape[0]
         proj = cell.i2h(feats)
@@ -41,12 +68,57 @@ class Attention(nn.Module):
         prev = torch.zeros(B, dtype=torch.long, device=feats.device)  # [GO]
         out = []
         for _ in range(self.num_steps):
-            e = cell.score(torch.tanh(proj + cell.h2h(h)[:, None, :]))
-            alpha = torch.softmax(e, dim=1)
-            context = (alpha * feats).sum(1)
-            onehot = F.one_hot(prev, self.num_classes).to(feats.dtype)
-            h, c = cell.rnn(torch.cat([context, onehot], 1), (h, c))
+            h, c = cell.step(feats, proj, h, c, prev, self.num_classes)
             logits = self.generator(h)
+            if lm is not None:  # fused scores, emitted and fed back
+                logits = logits.float() + lm[prev]
             prev = logits.argmax(1)
             out.append(logits)
         return torch.stack(out, 1)
+
+    def _beam_decode(self, feats, W: int, lm=None):
+        """Beam search over the decode (``attention.py:172-263`` of the JAX
+        package).  ``scores`` = sum of token log-probs up to and including
+        the first EOS (index 1): a beam that has emitted EOS may only emit
+        EOS, at cost 0, and the last step forces EOS on every live beam at
+        its true log-prob, so ``exp(score)`` is a sequence probability.
+        ``lm`` is added to the per-extension log-probs.  The W beams ride
+        along the batch as [B, W, ...] states against the [B, 1, T, ...]
+        encoder states; logits and log-probs are float32, the LSTM state in
+        the net's dtype.  Ties in the top-W go to the lower index, as
+        ``lax.top_k`` breaks them."""
+        if W < 1:
+            raise ValueError(f"beam_width must be >= 1, got {W}")
+        cell = self.attention_cell
+        B = feats.shape[0]
+        C, S, H = self.num_classes, self.num_steps, self.hidden
+        dev = feats.device
+        feats1 = feats[:, None]  # [B, 1, T, n_in]
+        proj1 = cell.i2h(feats)[:, None]
+        h = feats.new_zeros(B, W, H)
+        c = feats.new_zeros(B, W, H)
+        prev = torch.zeros((B, W), dtype=torch.long, device=dev)  # [GO]
+        score = torch.full((B, W), _NEG, device=dev)
+        score[:, 0] = 0.0
+        fin = torch.zeros((B, W), dtype=torch.bool, device=dev)
+        seqs = torch.zeros((B, W, S), dtype=torch.long, device=dev)
+        eos_only = torch.where(torch.arange(C, device=dev) == _EOS, 0.0, _NEG)
+        for s in range(S):
+            h2, c2 = cell.step(feats1, proj1, h, c, prev, C)
+            logp = F.log_softmax(self.generator(h2).float(), dim=-1)  # [B, W, C]
+            if lm is not None:
+                logp = logp + lm[prev]
+            step_lp = torch.where(fin[..., None], eos_only, logp)
+            if s == S - 1:  # live beams terminate, paying their EOS log-prob
+                step_lp = step_lp + eos_only
+            cand = (score[..., None] + step_lp).reshape(B, W * C)
+            score, pos = torch.sort(cand, dim=1, descending=True, stable=True)
+            score, pos = score[:, :W], pos[:, :W]
+            parent, tok = pos // C, pos % C
+            h = h2.gather(1, parent[..., None].expand(B, W, H))
+            c = c2.gather(1, parent[..., None].expand(B, W, H))
+            fin = fin.gather(1, parent) | (tok == _EOS)
+            seqs = seqs.gather(1, parent[..., None].expand(B, W, S))
+            seqs[:, :, s] = tok
+            prev = tok
+        return seqs, score

@@ -3,7 +3,8 @@
 Port of ``lightly_ocr_tpu/models/crnn.py`` (reference ``ocr/model.py:
 64-118``) for inference: ``transform`` None or TPS, ``sequence`` None or
 biLSTM, ``prediction`` CTC (a linear head named ``Prediction``, so its
-``weight``/``bias`` keys are the reference's) or Attention (greedy decode).
+``weight``/``bias`` keys are the reference's) or Attention (greedy or beam
+decode, with an optional LM prior).
 ``quant=True`` runs the ResNet's convs as w8a8 :class:`QuantConv`; TPS,
 BiLSTM and the heads stay float, as in the JAX package.
 """
@@ -40,9 +41,25 @@ class CRNNet(nn.Module):
             self.Prediction = Attention(n, cfg.hidden_size, cfg.derived_num_classes,
                                         cfg.num_steps)
 
-    def forward(self, images: torch.Tensor) -> torch.Tensor:
+    def forward(self, images: torch.Tensor, beam_width: int | None = None,
+                lm: torch.Tensor | None = None):
         """[B, H, W, C] in [-1, 1] -> logits: per frame [B, W', classes]
-        (CTC), or of the greedy decode [B, num_steps, classes]."""
+        (CTC), or of the greedy decode [B, num_steps, classes]; with
+        ``beam_width`` (Attention only) the beam's (tokens, scores).  ``lm``
+        is the Attention head's shallow-fusion prior; the CTC prior is fused
+        in ``ops.ctc.ctc_beam_search_decode`` over the logits."""
+        if self.cfg.prediction == "CTC":
+            if beam_width is not None:
+                raise ValueError(
+                    "beam_width applies to the Attention head only; "
+                    "CTC beam search is ops.ctc.ctc_beam_search_decode "
+                    "over the logits"
+                )
+            if lm is not None:
+                raise ValueError(
+                    "lm applies to the Attention head only; the CTC "
+                    "prior is fused inside ctc_beam_search_decode"
+                )
         p = next(self.parameters())
         x = images.permute(0, 3, 1, 2).to(p.dtype)
         if self.Transformation is not None:
@@ -51,4 +68,6 @@ class CRNNet(nn.Module):
         x = x.mean(dim=2).transpose(1, 2)  # mean over H -> [B, W', C]
         if self.SequenceModeling is not None:
             x = self.SequenceModeling(x)
-        return self.Prediction(x)
+        if self.cfg.prediction == "CTC":
+            return self.Prediction(x)
+        return self.Prediction(x, beam_width, lm)

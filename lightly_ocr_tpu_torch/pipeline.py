@@ -21,14 +21,15 @@ import numpy as np
 
 from lightly_ocr_tpu_torch.config import Config, load_config
 from lightly_ocr_tpu_torch.engines import CRAFT, CRNN, gray_from_rgb
+from lightly_ocr_tpu_torch.serving.upload import decode_upload
 
 
 def read_image(path: str) -> np.ndarray:
-    """RGB uint8 [H, W, 3] via PIL (drops alpha, grayscale -> RGB).  PIL is
-    imported here only: the serving path runs without it."""
-    from PIL import Image
-
-    return np.asarray(Image.open(path).convert("RGB"))
+    """RGB uint8 [H, W, 3] (alpha dropped, grayscale -> RGB), decoded as the
+    server decodes uploads: with PIL where it is installed, else PNG only
+    (:func:`~lightly_ocr_tpu_torch.serving.upload.decode_upload`)."""
+    with open(path, "rb") as f:
+        return decode_upload(f.read())
 
 
 def prepModel(config: Config | None = None, docker: bool = False, device="cuda"):

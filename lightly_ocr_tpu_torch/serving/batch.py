@@ -4,8 +4,10 @@
 seam-tail kernel (region and affinity maps) -> the connected-components
 kernel -> batched box extraction -> rects mapped to ORIGINAL-image
 coordinates -> bicubic matmul crops from the original-resolution gray
-images -> one CRNN dispatch over ``B * M`` crops -> greedy decode -> the
-vectorised host string decode (CTC collapse or attention EOS stops).  Only
+images -> one CRNN dispatch over ``B * M`` crops -> the decode of
+``models/decode.py`` (greedy or beam, with the optional LM prior of
+``cfg.ctc_lm_path``) -> the vectorised host string decode (CTC collapse,
+CTC beam labels, or attention EOS stops).  Only
 the last step runs on the host.
 
 The detector runs the plan the JAX package serves on its accelerator
@@ -48,7 +50,7 @@ import torch
 
 from lightly_ocr_tpu_torch.config import Config
 from lightly_ocr_tpu_torch.models.crnn import CRNNet
-from lightly_ocr_tpu_torch.models.decode import decode_crops
+from lightly_ocr_tpu_torch.models.decode import decode_crops, load_lm_prior
 from lightly_ocr_tpu_torch.models.layers import to_serving
 from lightly_ocr_tpu_torch.models.vgg_unet import VGG_UNet
 from lightly_ocr_tpu_torch.ops.cc import label_components
@@ -143,6 +145,7 @@ class BatchedOCR:
         rec = CRNNet(cfg, quant=cfg.quant_int8)
         rec.load_state_dict(rec_state, strict=True)
         self.rec_net = to_serving(rec, self.device, dtype).eval()
+        self.lm = load_lm_prior(cfg, self.device)  # None without ctc_lm_path
         self.converter = build_converter(cfg.prediction, cfg.character)
         self._chartab = np.asarray(self.converter.character, dtype="<U1")
 
@@ -208,9 +211,9 @@ class BatchedOCR:
     def recognize(self, gray, rects):
         """gray [B, H0, W0] and rects [B, M, 4] -> (pred_idx [B, M, T],
         confidence [B, M] f32): bicubic crops, one CRNN dispatch over the
-        B * M crops, greedy decode of its head."""
+        B * M crops, the decode of ``cfg`` (with the LM prior, if any)."""
         B, M = rects.shape[:2]
-        idx, conf = decode_crops(self.rec_net, self.crops(gray, rects), self.cfg)
+        idx, conf = decode_crops(self.rec_net, self.crops(gray, rects), self.cfg, self.lm)
         return idx.reshape(B, M, -1), conf.float().reshape(B, M)
 
     def crops(self, gray, rects):
@@ -289,7 +292,11 @@ class BatchedOCR:
         B, M, T = idx.shape
         ctc = self.cfg.prediction == "CTC"
         chars = np.ascontiguousarray(self._chartab[idx])
-        if ctc:
+        if ctc and self.cfg.ctc_decode == "beam":
+            # beam labels are final: drop the blank padding only (collapsing
+            # again would eat genuine double letters)
+            keep = idx != 0
+        elif ctc:
             # greedy collapse: keep frames that are not blank and differ
             # from the frame before
             prev = np.concatenate([np.full((B, M, 1), -1, idx.dtype), idx[..., :-1]], -1)

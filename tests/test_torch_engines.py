@@ -299,13 +299,32 @@ def test_ctc_head_is_the_reference_linear(setup):
 
 
 def test_decode_refuses_what_is_not_ported():
-    from lightly_ocr_tpu_torch.models.decode import decode_preds
+    """Every decode mode is ported; what the port's decode still refuses is
+    what the JAX package refuses: a CTC head asked for the attention beam or
+    the attention prior, a CTC prior without the CTC beam, a non-zero blank,
+    a beam narrower than 1 (each a ``ValueError`` there and here)."""
+    from lightly_ocr_tpu_torch.models.attention import Attention
+    from lightly_ocr_tpu_torch.models.decode import decode_crops
+    from lightly_ocr_tpu_torch.ops.ctc import ctc_beam_search_decode
 
-    preds = torch.zeros(2, 26, 11)
-    for kw in (dict(prediction="CTC", ctc_decode="beam"), dict(prediction="Attention", attn_decode="beam"),
-               dict(prediction="Attention", ctc_lm_path="prior.npy")):
-        with pytest.raises(NotImplementedError):
-            decode_preds(preds, Config(**_CFG, **kw))
+    ctc = Config(**_CFG, prediction="CTC", transform="None")
+    net = CRNNet(ctc).eval()
+    crops = torch.zeros(1, 32, 100, 1)
+    with pytest.raises(ValueError, match="Attention head only"):
+        net(crops, beam_width=4)
+    with pytest.raises(ValueError, match="Attention head only"):
+        net(crops, lm=torch.zeros(11, 11))
+    with pytest.raises(ValueError, match="needs ctc_decode='beam'"):
+        CRNN(ctc.replace(ctc_lm_path="prior.npy"), state_dict=net.state_dict(), device="cpu")
+    with pytest.raises(ValueError, match="blank must be class 0"):
+        ctc_beam_search_decode(torch.zeros(1, 4, 3), blank=1)
+    with pytest.raises(ValueError, match=r"lm must be \[C, C\]"):
+        ctc_beam_search_decode(torch.zeros(1, 4, 3), lm=torch.zeros(2, 2))
+    with pytest.raises(ValueError, match="beam_width must be >= 1"):
+        Attention(8, 8, 5, 3)(torch.zeros(1, 4, 8), beam_width=0)
+    with torch.no_grad():  # the beam modes now decode
+        idx, conf = decode_crops(net, crops, ctc.replace(ctc_decode="beam", beam_width=2))
+    assert idx.shape == (1, 26) and conf.shape == (1,)
 
 
 @pytest.mark.parametrize("prefix", ["", "module."])

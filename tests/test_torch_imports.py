@@ -28,10 +28,16 @@ mods = [m.name for m in pkgutil.walk_packages(lightly_ocr_tpu_torch.__path__,
                                               "lightly_ocr_tpu_torch.")]
 for m in mods:
     importlib.import_module(m)
-for m in ("engines", "pipeline", "ops.poly", "ops.ctc"):
+for m in ("engines", "pipeline", "ops.poly", "ops.ctc", "serving.server", "serving.ingress",
+          "serving.upload"):
     assert "lightly_ocr_tpu_torch." + m in mods, m
 import chip_smoke
-from lightly_ocr_tpu_torch.serving.server import BatchedServeModel, InferenceWorker
+from lightly_ocr_tpu_torch.serving.server import (BatchedServeModel, InferenceWorker, create_app,
+                                                  main, run_server)
+from lightly_ocr_tpu_torch.serving.ingress import create_ingress_app
+from lightly_ocr_tpu_torch.serving.upload import decode_upload
+from lightly_ocr_tpu_torch.ops.ctc import ctc_beam_search_decode
+from lightly_ocr_tpu_torch.models.decode import load_lm_prior
 assert "jax" not in sys.modules or sys.modules["jax"] is None
 print("imported", len(mods))
 """
