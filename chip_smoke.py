@@ -77,7 +77,28 @@ exits non-zero with the traceback):
 12. ``cli``: ``python -m lightly_ocr_tpu_torch.serving.server --batched
     --bf16 --decode beam --lm <prior>`` as a subprocess on 127.0.0.1 and a
     free port: ``GET /`` and one PNG upload answer, its log names ``cuda``,
-    and it ends without a traceback.
+    and it ends without a traceback;
+13. ``train``: CRNN training at full width (``Config()``: TPS, ResNet(512),
+    2xBiLSTM(256); float32, TF32 off) on word records written here (a
+    seeded bitmap font, PNG without PIL, the port's ``RecordWriter``): (a)
+    one forward and backward of each head at b64 from the seeded training
+    init, card against CPU: the loss within 1e-4; each gradient held to the
+    CPU's float64 one, within max(1e-3, 4x the CPU float32's own distance)
+    relative L2; the same step in float64 on both, the loss within 1e-10
+    and each gradient within 1e-8 (1e-3 in the TPS rectifier, whose grid
+    is float32 in every dtype); the card fed the CPU's rectified image
+    (its own within 1e-4 of it); (b) ``python -m lightly_ocr_tpu_torch.train.trainer`` as a
+    subprocess (CTC head without TPS, Adam 1e-3, 200 steps at b64, words of
+    3-7 digits, an eval every 20 steps, checkpoints every 100): exit 0
+    without a traceback, its log
+    names ``cuda``, checkpoints 100 and 200, ``best.json``, and the mean
+    loss of the last 20 steps below half that of the first 20; (c) the
+    step-100 checkpoint restored equal bit for bit; (d) the best
+    checkpoint in ``engines.CRNN`` (strict load) reading 8 crops; (e) ms a
+    train step, samples/s, peak memory, CUDA kernels a step and the top 5
+    by device time, for Attention and CTC at b64 and b192, remat and
+    ``grad_accum=2``; the loader's ms a batch and the numpy PNG decode of a
+    word by row filter.
 
 Then one JSON line with each kernel's numbers, and as the last line
 ``{"ok": true, "device": {...}}``.  TF32 is switched OFF for float32 matmuls
@@ -91,10 +112,12 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import gc
 import io
 import json
 import os
 import queue
+import re
 import shutil
 import struct
 import subprocess
@@ -123,6 +146,20 @@ BEAM_DISPATCHES = 2  # timed dispatches of each beam plan
 BEAM_TOL = 1e-4  # top-beam score, card vs CPU (float32, TF32 off)
 CLI_DEADLINE_S = 120  # for the server subprocess to print "serving on"
 SEED = 0
+TRAIN_BATCH = 64  # the Config() default
+TRAIN_LOSS_TOL = 1e-4  # |loss card - loss CPU| / |loss CPU|, float32, TF32 off
+TRAIN_GRAD_TOL = 1e-3  # each gradient: ||card - CPU float64|| / ||CPU float64||, or up to
+TRAIN_GRAD_FACTOR = 4  # this many times the CPU float32's own distance, where that is larger
+TRAIN_LOSS64_TOL = 1e-10  # the same step in float64 on both: the loss,
+TRAIN_GRAD64_TOL = 1e-8  # each gradient outside the TPS rectifier (rel L2),
+TRAIN_GRAD64_TPS_TOL = 1e-3  # and in it (its grid is float32 in every dtype)
+TRAIN_WORDS, VAL_WORDS = 256, 128  # records of the trainer CLI run
+TRAIN_ALPHABET = "0123456789"  # its words' letters (the model keeps Config()'s 36 classes)
+TRAIN_ITERS = 200  # steps of the trainer CLI run
+TRAIN_LOG_EVERY = 20  # the CLI run's val_interval: its log's train_loss is a 20-step mean
+TRAIN_SAVE_EVERY = 100  # the CLI run's save_interval
+TRAIN_SPEED_STEPS = 20  # timed steps a speed case, after 3 warm-up steps
+TRAIN_DEADLINE_S = 900  # for the trainer subprocess
 # H100 SXM data-sheet peaks (dense): bf16 and int8 tensor cores, HBM3
 PEAK_BF16_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
@@ -655,14 +692,16 @@ def stage_times(ocr, imgs) -> dict:
 
 
 def png_bytes(img: np.ndarray, filt: int = 2) -> bytes:
-    """RGB uint8 [H, W, 3] -> 8-bit RGB PNG bytes, every row filtered with
-    ``filt`` (0 None, 1 Sub, 2 Up, 3 Average, 4 Paeth); stdlib ``zlib`` and
-    ``struct`` (the card's machine has no PIL)."""
-    H, W, _ = img.shape
-    x = img.reshape(H, W * 3).astype(np.int16)
-    up = np.vstack([np.zeros((1, W * 3), np.int16), x[:-1]])
-    left = np.hstack([np.zeros((H, 3), np.int16), x[:, :-3]])
-    upleft = np.hstack([np.zeros((H, 3), np.int16), up[:, :-3]])
+    """uint8 RGB [H, W, 3] or gray [H, W] -> 8-bit PNG bytes (colour type 2
+    or 0), every row filtered with ``filt`` (0 None, 1 Sub, 2 Up, 3 Average,
+    4 Paeth); stdlib ``zlib`` and ``struct`` (the card's machine has no
+    PIL)."""
+    H, W = img.shape[:2]
+    ch = 1 if img.ndim == 2 else img.shape[2]
+    x = img.reshape(H, W * ch).astype(np.int16)
+    up = np.vstack([np.zeros((1, W * ch), np.int16), x[:-1]])
+    left = np.hstack([np.zeros((H, ch), np.int16), x[:, :-ch]])
+    upleft = np.hstack([np.zeros((H, ch), np.int16), up[:, :-ch]])
     if filt == 4:
         p = left + up - upleft
         pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - upleft)
@@ -674,7 +713,8 @@ def png_bytes(img: np.ndarray, filt: int = 2) -> bytes:
     def chunk(kind: bytes, body: bytes) -> bytes:
         return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body))
 
-    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", W, H, 8, 2, 0, 0, 0))
+    ctype = 0 if ch == 1 else 2
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", W, H, 8, ctype, 0, 0, 0))
             + chunk(b"IDAT", zlib.compress(raw.tobytes())) + chunk(b"IEND", b""))
 
 
@@ -980,6 +1020,383 @@ def cli_phase(prior_path: str, png: bytes, smi: str) -> None:
     assert plan, "cli: the server's log does not name the cuda device:\n" + stderr[-4000:]
 
 
+def glyph_font(charset: str, seed: int) -> dict:
+    """A seeded bitmap "font": one random 20x9 binary glyph a character, a
+    5x3 grid of 4x3-pixel blocks (coarse enough to survive the ResNet's
+    pooling)."""
+    rng = np.random.default_rng(seed)
+    return {c: np.kron(rng.random((5, 3)) < 0.5, np.ones((4, 3), bool)) for c in charset}
+
+
+def word_image(text: str, font: dict, rng: np.random.Generator) -> np.ndarray:
+    """``text`` drawn with ``font`` as uint8 gray [32, 11 * len + 6]: dark
+    glyphs on a light noisy ground, so the image depends on the label."""
+    img = np.full((32, 11 * len(text) + 6), float(rng.integers(190, 240)))
+    ink = float(rng.integers(10, 70))
+    for i, c in enumerate(text):
+        img[6:26, 3 + 11 * i: 12 + 11 * i][font[c]] = ink
+    img += rng.normal(0.0, 6.0, img.shape)
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def word_records(path: str, n: int, font: dict, charset: str, seed: int) -> list:
+    """``n`` seeded words of 3-7 characters written as PNG records with the
+    port's ``RecordWriter``; returns the labels."""
+    from lightly_ocr_tpu_torch.data.records import RecordWriter
+
+    rng = np.random.default_rng(seed)
+    labels = []
+    with RecordWriter(path) as w:
+        for _ in range(n):
+            text = "".join(rng.choice(list(charset), size=int(rng.integers(3, 8))))
+            w.add(text, png_bytes(word_image(text, font, rng)))
+            labels.append(text)
+    return labels
+
+
+def train_grads(cfg, images: np.ndarray, labels: list, dev: str) -> dict:
+    """One forward and backward of the model from the seeded training init,
+    on the CPU in float64 (the reference) and float32, and on the card in
+    float32 and float64: ``{run: (loss, {name: gradient}, seconds)}``, and
+    under ``"rect"`` each run's rectified image.  The card is fed the CPU's
+    rectified image of its dtype (straight through: the gradient still
+    flows through the card's own TPS): the grids of the two TPS round
+    differently, and the gradients move by more than the gate for such a
+    change of the input."""
+    from lightly_ocr_tpu_torch.text.converters import build_converter
+    from lightly_ocr_tpu_torch.train.train_step import init_train_state, loss_fn
+    from lightly_ocr_tpu_torch.train.trainer import encode_batch
+
+    runs, rect = {}, {}
+    for name, where, dt, ref in (("cpu64", "cpu", torch.float64, None), ("cpu", "cpu", torch.float32, None),
+                                 ("card", dev, torch.float32, "cpu"), ("card64", dev, torch.float64, "cpu64")):
+        model, _ = init_train_state(cfg, SEED, where)
+        model.to(dt)
+        if model.Transformation is not None:
+            def feed(m, i, o, name=name, ref=ref):
+                rect[name] = o.detach().cpu()
+                if ref is None:
+                    return None
+                return o + (rect[ref].to(o.device) - o).detach()  # straight through
+            model.Transformation.register_forward_hook(feed)
+        batch = encode_batch(cfg, build_converter(cfg.prediction, cfg.character), images, labels,
+                             where)
+        batch["images"] = batch["images"].to(dt)
+        t = time.perf_counter()
+        loss, _ = loss_fn(model, cfg, batch)
+        loss.backward()
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        runs[name] = (loss.item(), {n: p.grad.detach().cpu().double() for n, p in model.named_parameters()},
+                      time.perf_counter() - t)
+        del model
+    runs["rect"] = rect
+    return runs
+
+
+def train_gates(runs: dict) -> tuple[str, list]:
+    """Phase ``train`` (a)'s gates on :func:`train_grads`' runs: -> (a line
+    of the readings, the gates that failed).  float32: the loss within
+    TRAIN_LOSS_TOL of the CPU's; each gradient held to the CPU's float64
+    one as the CPU's own float32 gradient is (in float32 a BatchNorm scale's
+    gradient, a sum of ~200,000 products that mostly cancel, is ~1e-2 off
+    the float64 one on either device).  float64: the loss within
+    TRAIN_LOSS64_TOL and each gradient within TRAIN_GRAD64_TOL of the CPU's
+    (TRAIN_GRAD64_TPS_TOL in the TPS rectifier, whose grid is float32 in
+    every dtype); the rectified images within 1e-4 of the CPU's."""
+    (l64, g64, _), (lc, g32, _), (lg, gg, _), (lg64, gg64, _) = (
+        runs[k] for k in ("cpu64", "cpu", "card", "card64"))
+    rect = runs["rect"]
+
+    def rel(g, n):
+        return ((g[n] - g64[n]).norm() / g64[n].norm().clamp_min(1e-30)).item()
+
+    bound = {n: max(TRAIN_GRAD_TOL, TRAIN_GRAD_FACTOR * rel(g32, n)) for n in g64}
+    bound64 = {n: TRAIN_GRAD64_TPS_TOL if n.startswith("Transformation.") else TRAIN_GRAD64_TOL for n in g64}
+    worst = max(g64, key=lambda n: rel(gg, n) / bound[n])
+    worst64 = max(g64, key=lambda n: rel(gg64, n) / bound64[n])
+    cpu_worst = max(g64, key=lambda n: rel(g32, n))
+    loss_err, loss64_err = abs(lg - lc) / abs(lc), abs(lg64 - l64) / abs(l64)
+    rect_err = max(((rect[a] - rect[b]).abs().max() / rect[b].abs().max()).item()
+                   for a, b in (("card", "cpu"), ("card64", "cpu64"))) if rect else 0.0
+    line = (f"loss {lg:.6f} vs {lc:.6f} (rel {loss_err:.2e}, tol {TRAIN_LOSS_TOL}; float64 {l64:.6f}, the "
+            f"card's {loss64_err:.2e} off, tol {TRAIN_LOSS64_TOL}); gradients against the CPU's float64, "
+            f"rel L2: the card's float32 worst against its bound {worst} {rel(gg, worst):.2e} (bound "
+            f"{bound[worst]:.2e} = max({TRAIN_GRAD_TOL}, {TRAIN_GRAD_FACTOR} x the CPU float32's "
+            f"{rel(g32, worst):.2e})); its largest {max(rel(gg, n) for n in g64):.2e}, the CPU float32's "
+            f"largest {rel(g32, cpu_worst):.2e} ({cpu_worst}); the card's float64 worst against its bound "
+            f"{worst64} {rel(gg64, worst64):.2e} (bound {bound64[worst64]:.0e}), its largest outside the "
+            f"rectifier {max([rel(gg64, n) for n in g64 if not n.startswith('Transformation.')]):.2e}; "
+            f"over {len(g64)} tensors; rectified image card vs CPU {rect_err:.2e} of its max (tol 1e-4)")
+    failed = [gate for gate, ok in (
+        ("loss float32", loss_err <= TRAIN_LOSS_TOL), ("loss float64", loss64_err <= TRAIN_LOSS64_TOL),
+        ("rectified image", rect_err <= 1e-4),
+        (f"gradient float32 {worst}", rel(gg, worst) <= bound[worst]),
+        (f"gradient float64 {worst64}", rel(gg64, worst64) <= bound64[worst64])) if not ok]
+    return line, failed
+
+
+def train_parity(cfg, images: np.ndarray, labels: list, smi: str, dev: str) -> None:
+    """Phase ``train`` (a): :func:`train_grads` held by :func:`train_gates`."""
+    runs = train_grads(cfg, images, labels, dev)
+    line, failed = train_gates(runs)
+    log(f"train {cfg.prediction} b{len(labels)} card vs CPU: {line}; first forward+backward "
+        f"{runs['card'][2]:.2f} s card, {runs['cpu'][2]:.2f} s CPU; on {smi}")
+    assert not failed, f"train: the card's step is off: {failed}"
+
+
+def trainer_cli(base, work: str, train_root: str, val_root: str, smi: str, dev: str) -> dict:
+    """Phase ``train`` (b): the trainer's entry point as users start it, a
+    subprocess on the card; returns what its log shows."""
+    log_dir = os.path.join(work, "logs")
+    cfg_path = os.path.join(work, "train.json")  # JSON is YAML too; the card has no pyyaml
+    with open(cfg_path, "w") as f:
+        json.dump({**base.to_dict(), "batch_size": TRAIN_BATCH, "num_epochs": 1000,
+                   "val_interval": TRAIN_LOG_EVERY, "save_interval": TRAIN_SAVE_EVERY, "log_dir": log_dir,
+                   "workers": 2, "seeds": SEED}, f)
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(filter(None, [root, os.environ.get("PYTHONPATH")]))}
+    cmd = [sys.executable, "-m", "lightly_ocr_tpu_torch.train.trainer", "--config", cfg_path,
+           "--train-root", train_root, "--val-root", val_root, "--num-iters", str(TRAIN_ITERS)]
+    if dev != "cuda":  # the default device is the card
+        cmd += ["--device", dev]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=work, env=env, capture_output=True, text=True,
+                          timeout=TRAIN_DEADLINE_S)
+    wall = time.perf_counter() - t0
+    assert proc.returncode == 0, f"trainer exited {proc.returncode}:\n{proc.stderr[-4000:]}"
+    assert "Traceback" not in proc.stderr, "trainer: traceback in stderr:\n" + proc.stderr[-4000:]
+    device_line = [ln for ln in proc.stdout.splitlines() if ln.startswith(f"training on device {dev}")]
+    assert device_line, "trainer: its log does not name the cuda device:\n" + proc.stdout[-2000:]
+    for step in (TRAIN_SAVE_EVERY, TRAIN_ITERS):
+        assert os.path.isfile(os.path.join(log_dir, "checkpoints", str(step), "state.pt")), step
+    assert os.path.isfile(os.path.join(log_dir, "best.json"))
+    with open(os.path.join(log_dir, "log_train.txt")) as f:
+        text = f.read()
+    windows = [(int(a), float(b), float(c)) for a, b, c in re.findall(
+        r"\[(\d+)/\d+\] train_loss: ([\d.]+) \| val_loss: ([\d.]+)", text)]
+    accs = [float(a) for a in re.findall(r"^accuracy\s*: ([\d.]+)", text, re.M)]
+    assert [w[0] for w in windows] == list(range(TRAIN_LOG_EVERY, TRAIN_ITERS + 1, TRAIN_LOG_EVERY)), windows
+    first, last = windows[0][1], windows[-1][1]
+    with open(os.path.join(log_dir, "best.json")) as f:
+        best = json.load(f)
+    log(f"train cli: {' '.join(cmd[1:3])} ... {TRAIN_ITERS} steps at b{TRAIN_BATCH} ({base.prediction}, "
+        f"{base.transform}, Adam 1e-3) in {wall:.2f} s; {device_line[0]}; train_loss of steps 1-{TRAIN_LOG_EVERY} "
+        f"{first:.4f}, of the last {TRAIN_LOG_EVERY} {last:.4f}; train_loss by {TRAIN_LOG_EVERY} steps "
+        f"{[w[1] for w in windows]}; val loss {[w[2] for w in windows]}; val accuracy {accs}; best {best}; "
+        f"on {smi}")
+    assert last < 0.5 * first, "train cli: the loss did not halve"
+    return {"log_dir": log_dir, "best": best}
+
+
+def train_resume(cfg, log_dir: str, smi: str, dev: str) -> None:
+    """Phase ``train`` (c): the first periodic checkpoint restored on the
+    card equals what was saved, bit for bit: model, optimizer state, step."""
+    from lightly_ocr_tpu_torch.train.train_step import init_train_state
+    from lightly_ocr_tpu_torch.utils.checkpoint import load_state_file, restore_checkpoint
+
+    ckpt = os.path.join(log_dir, "checkpoints")
+    saved, _ = load_state_file(ckpt, TRAIN_SAVE_EVERY)
+    _, state = init_train_state(cfg, SEED + 7, dev)
+    state, step = restore_checkpoint(ckpt, state, TRAIN_SAVE_EVERY)
+    model_sd, opt_sd = state.model.state_dict(), state.optimizer.state_dict()
+    assert step == TRAIN_SAVE_EVERY == state.step == saved["step"]
+    assert model_sd.keys() == saved["model"].keys()
+    for k, v in saved["model"].items():
+        assert torch.equal(model_sd[k].cpu(), v), f"resume: model {k} differs"
+    n_state = 0
+    for i, slots in saved["optimizer"]["state"].items():
+        for name, v in slots.items():
+            assert torch.equal(opt_sd["state"][i][name].cpu(), v.cpu()), f"resume: optimizer {i}.{name}"
+            n_state += 1
+    assert opt_sd["param_groups"] == saved["optimizer"]["param_groups"], "resume: param groups"
+    log(f"train resume: step-{step} checkpoint restored on the card equal bit for bit "
+        f"({len(model_sd)} model tensors, {n_state} optimizer tensors, step {step}); on {smi}")
+
+
+def train_bridge(cfg, log_dir: str, records: str, smi: str, dev: str) -> None:
+    """Phase ``train`` (d): the best checkpoint's state dict in the
+    per-image recognizer on the card (strict load), reading 8 training
+    crops."""
+    from lightly_ocr_tpu_torch.data.loader import align_collate
+    from lightly_ocr_tpu_torch.data.records import RecordDataset
+    from lightly_ocr_tpu_torch.engines import CRNN
+    from lightly_ocr_tpu_torch.utils.checkpoint import load_variables_for_inference
+
+    sd = load_variables_for_inference(os.path.join(log_dir, "best_acc"))
+    engine = CRNN(cfg, state_dict=sd, device=dev)
+    ds = RecordDataset(records, character=cfg.character, batch_max_len=cfg.batch_max_len)
+    crops, labels = align_collate([ds[i] for i in range(8)], cfg.height, cfg.width, cfg.keep_ratio)
+    ds.close()
+    texts, conf = engine.recognize_crops(crops)
+    log(f"train bridge: engines.CRNN(state_dict=best checkpoint) on the card reads "
+        f"{list(zip(labels, texts))}, confidences {np.round(conf, 3).tolist()}; on {smi}")
+    assert len(texts) == 8 and all(isinstance(t, str) for t in texts)
+
+
+def train_speed(base, records: str, smi: str, dev: str) -> None:
+    """Phase ``train`` (e): ms a train step (median of TRAIN_SPEED_STEPS
+    after 3 warm-up steps, host clock around a synchronise), samples/s and
+    peak memory at full width (``Config()``: Attention, TPS, Adadelta), TF32
+    off; CUDA kernels a step and the top 5 by device time (torch.profiler,
+    one step); and the loader's ms a batch on the host."""
+    from lightly_ocr_tpu_torch.config import Config
+    from lightly_ocr_tpu_torch.data.loader import DataLoader
+    from lightly_ocr_tpu_torch.data.records import RecordDataset
+    from lightly_ocr_tpu_torch.text.converters import build_converter
+    from lightly_ocr_tpu_torch.train.trainer import encode_batch
+    from lightly_ocr_tpu_torch.train.train_step import (
+        clip_by_global_norm_,
+        init_train_state,
+        loss_fn,
+        make_train_step,
+    )
+
+    def split_ms(model, state, cfg, batch) -> list:
+        """ms of the forward, the backward and the clip + optimizer step of
+        one step (CUDA events; plain steps only)."""
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        state.optimizer.zero_grad(set_to_none=True)
+        ev[0].record()
+        loss, _ = loss_fn(model, cfg, batch)
+        ev[1].record()
+        loss.backward()
+        ev[2].record()
+        clip_by_global_norm_([p.grad for p in model.parameters() if p.grad is not None], cfg.grad_clip)
+        state.optimizer.step()
+        ev[3].record()
+        torch.cuda.synchronize()
+        return [ev[i].elapsed_time(ev[i + 1]) for i in range(3)]
+
+    ds = RecordDataset(records, character=Config().character, batch_max_len=25)
+    loader = DataLoader(ds, batch_size=TRAIN_BATCH, keep_ratio=True, seed=SEED, workers=2)
+    t = time.perf_counter()
+    n = sum(1 for _ in loader)
+    load_ms = 1e3 * (time.perf_counter() - t) / n
+    pool = [ds[i] for i in range(len(ds))]
+    ds.close()
+    log(f"train loader: {load_ms:.2f} ms a b{TRAIN_BATCH} batch on the host (2 threads, PNG decode "
+        f"in numpy + bicubic resize, {n} batches); host of {smi}")
+    att = base.replace(adam=Config().adam, lr=Config().lr)  # Config()'s optimizer: Adadelta
+    ctc = att.replace(prediction="CTC")
+    cases = [("attention b64", att, 64), ("ctc b64", ctc, 64),
+             ("attention b192", att, 192), ("ctc b192", ctc, 192),
+             ("attention b64 remat", att.replace(train_remat=True), 64),
+             ("attention b64 grad_accum=2", att.replace(grad_accum=2), 64)]
+    from lightly_ocr_tpu_torch.data.loader import align_collate
+
+    for name, cfg, B in cases:
+        images, labels = align_collate([pool[i % len(pool)] for i in range(B)], keep_ratio=True)
+        batch = encode_batch(cfg, build_converter(cfg.prediction, cfg.character), images, labels, dev)
+        accum = max(1, cfg.grad_accum)
+        gc.collect()
+        torch.cuda.empty_cache()
+        base_mem = torch.cuda.memory_allocated()  # what earlier phases still hold
+        model, state = init_train_state(cfg, SEED, dev)
+        step = make_train_step(model, cfg)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(3):
+            step(state, batch)
+        times = []
+        for _ in range(TRAIN_SPEED_STEPS):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            _, metrics = step(state, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+        assert np.isfinite(metrics["loss"].item())
+        peak = (torch.cuda.max_memory_allocated() - base_mem) / 2 ** 30
+        prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
+        with prof:
+            step(state, batch)
+            torch.cuda.synchronize()
+        kern = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+        n_kernels = sum(e.count for e in kern)
+        busy = sum(e.device_time_total for e in kern) / 1e3
+        top = sorted(kern, key=lambda e: e.device_time_total, reverse=True)[:5]
+        ms = 1e3 * float(np.median(times))
+        split = ""
+        if accum == 1 and not cfg.train_remat:
+            parts = np.median([split_ms(model, state, cfg, batch) for _ in range(5)], axis=0)
+            split = (f"; forward {parts[0]:.3f}, backward {parts[1]:.3f}, clip + optimizer "
+                     f"{parts[2]:.3f} ms (CUDA events, median of 5)")
+        log(f"train speed {name}: {ms:.3f} ms a step (median of {TRAIN_SPEED_STEPS}; min "
+            f"{1e3 * min(times):.3f}, max {1e3 * max(times):.3f}; host clock), {B / ms * 1e3:.1f} "
+            f"samples/s, peak memory {peak:.2f} GiB above the {base_mem / 2 ** 30:.2f} held before; "
+            f"{n_kernels} CUDA kernels a step, {busy:.3f} ms of device time (torch.profiler){split}; loader {load_ms / TRAIN_BATCH * B / ms:.1%} of a step; "
+            f"on {smi}")
+        log(f"train speed {name} kernels by device time: "
+            + "; ".join(f"{e.key[:60]} x{e.count} {e.device_time_total / 1e3:.3f} ms" for e in top)
+            + f" on {smi}")
+        del model, state, step, batch
+
+
+def png_unfilter_words(smi: str) -> None:
+    """The numpy PNG decode of a word record, one row filter at a time (PIL
+    writes word records with a mix of Up, Paeth and Sub rows)."""
+    from lightly_ocr_tpu_torch.serving.upload import decode_png
+
+    rng = np.random.default_rng(SEED)
+    font = glyph_font("abcdefghij", SEED)
+    img = np.concatenate([word_image("abcdefghij", font, rng)] * 2, axis=1)[:, :200]  # 32x200 gray
+    parts = []
+    for filt, fname in enumerate(("None", "Sub", "Up", "Average", "Paeth")):
+        data = png_bytes(img, filt)
+        assert (decode_png(data)[..., 0] == img).all(), fname
+        t = time.perf_counter()
+        for _ in range(20):
+            decode_png(data)
+        parts.append(f"{fname} {1e3 * (time.perf_counter() - t) / 20:.3f}")
+    log(f"numpy PNG decode ms of a 32x200 gray word by row filter: {', '.join(parts)} "
+        f"(host of {smi})")
+
+
+def train_phase(smi: str, dev: str = "cuda", base=None) -> None:
+    """Phase ``train``: (a) card vs CPU, (b) the trainer CLI, (c) resume,
+    (d) the bridge into ``engines.CRNN``, (e) speed; on ``Config()`` (or
+    ``base``, for a rehearsal on the CPU) with Adam at 1e-3."""
+    from lightly_ocr_tpu_torch.config import Config
+    from lightly_ocr_tpu_torch.data.loader import align_collate
+    from lightly_ocr_tpu_torch.data.records import RecordDataset
+
+    cfg = (base or Config()).replace(adam=True, lr=1e-3)
+    work = tempfile.mkdtemp(prefix="lightly_ocr_train_")
+    try:
+        font = glyph_font(cfg.character, SEED)
+        train_root, val_root = os.path.join(work, "train.lor"), os.path.join(work, "val.lor")
+        word_records(train_root, TRAIN_WORDS, font, TRAIN_ALPHABET, SEED)
+        word_records(val_root, VAL_WORDS, font, TRAIN_ALPHABET, SEED + 1)
+        ds = RecordDataset(train_root, character=cfg.character, batch_max_len=cfg.batch_max_len)
+        images, labels = align_collate([ds[i] for i in range(TRAIN_BATCH)], keep_ratio=True)
+        ds.close()
+        t0 = time.perf_counter()
+        for head in ("Attention", "CTC"):
+            train_parity(cfg.replace(prediction=head), images, labels, smi, dev)
+        log(f"phase train (a) parity: {time.perf_counter() - t0:.2f} s")
+        t0 = time.perf_counter()
+        # the CLI trains the demo recognizer's topology, the CTC head
+        # without TPS: from scratch it starts reading the glyphs within 200
+        # steps.  Config()'s TPS + attention stays near the letters' prior
+        # for hundreds of steps on these records, in the JAX package's
+        # trainer as in the port's (scripts/torch_train_curves.py: the
+        # same init and batches on the CPU, the two curves within the
+        # spread that round-off alone makes)
+        cli_cfg = cfg.replace(prediction="CTC", transform="None")
+        out = trainer_cli(cli_cfg, work, train_root, val_root, smi, dev)
+        log(f"phase train (b) cli: {time.perf_counter() - t0:.2f} s")
+        t0 = time.perf_counter()
+        train_resume(cli_cfg, out["log_dir"], smi, dev)
+        train_bridge(cli_cfg, out["log_dir"], train_root, smi, dev)
+        log(f"phase train (c, d) resume, bridge: {time.perf_counter() - t0:.2f} s")
+        t0 = time.perf_counter()
+        png_unfilter_words(smi)
+        train_speed(cfg, train_root, smi, dev)
+        log(f"phase train (e) speed: {time.perf_counter() - t0:.2f} s")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing run",
@@ -1217,6 +1634,11 @@ def main() -> int:
         log(f"phase cli: {time.perf_counter() - t0:.2f} s")
     finally:
         shutil.rmtree(lm_dir, ignore_errors=True)
+
+    # -- phase 13: CRNN training on the card --------------------------------
+    t0 = time.perf_counter()
+    train_phase(smi)
+    log(f"phase train: {time.perf_counter() - t0:.2f} s")
 
     # launches: each kernel's count over the timed run of the path that
     # drives it (the bf16 default plan for the seam tail, CC and #5, the bf16

@@ -6,12 +6,13 @@ serving plan of ``serving/batch.py::BatchedOCR``, as in the JAX package.
 The other fields that steer the TPU serving plan (``fused_impl``,
 ``monolith``, ``cpool_pool``, ``mesh_*``) are kept for file compatibility
 and are not read by the port.
-``yaml`` is imported inside :func:`load_config` only, so the serving path
-imports without it.
+``yaml`` is imported inside :func:`load_config` only, so the package
+imports without it; without it, a config file is read as JSON.
 """
 from __future__ import annotations
 
 import dataclasses
+import json
 import os
 from dataclasses import dataclass
 from typing import Any, Mapping
@@ -193,11 +194,22 @@ class Config:
 
 
 def load_config(path: str | None = None) -> Config:
-    """Load a reference-format YAML config; missing keys get defaults."""
+    """Load a reference-format YAML config; missing keys get defaults.
+    Where ``yaml`` is not installed (the card's installation), the file is
+    read as JSON, which is YAML too: write the config as JSON there."""
     if path is None:
         return Config()
-    import yaml
-
     with open(os.path.expanduser(path), "r") as f:
-        data = yaml.safe_load(f) or {}
+        text = f.read()
+    try:
+        import yaml
+    except ImportError:
+        try:
+            data = json.loads(text) if text.strip() else {}
+        except json.JSONDecodeError as e:
+            raise ValueError(
+                f"{path}: pyyaml is not installed, and the file is not JSON "
+                "(JSON is YAML too: write the config as JSON here)") from e
+    else:
+        data = yaml.safe_load(text) or {}
     return Config.from_dict(data)

@@ -1,10 +1,12 @@
-"""Bahdanau attention decoder: greedy, greedy with an LM prior, and beam
-search (port of ``lightly_ocr_tpu/models/attention.py``).
+"""Bahdanau attention decoder: teacher forcing for training; greedy, greedy
+with an LM prior, and beam search for inference (port of
+``lightly_ocr_tpu/models/attention.py``).
 
 Per step, as ``AttentionCell`` (reference ``ocr/modules/attention.py:
 38-88``): ``e = score(tanh(i2h(feats) + h2h(h)))``, ``alpha = softmax_T(e)``,
 ``context = alpha^T feats``, ``LSTMCell([context; onehot(prev)], (h, c))``,
-``logits = generator(h)``, and the argmax feeds the next step.  ``i2h(feats)``
+``logits = generator(h)``; in training the next step is fed the
+ground-truth token, in inference the argmax.  ``i2h(feats)``
 is step-invariant and computed once.  The JAX package runs these loops in
 XLA (no Pallas kernel), so stock PyTorch ops serve here.
 """
@@ -48,9 +50,14 @@ class Attention(nn.Module):
         self.generator = nn.Linear(hidden, num_classes)
 
     def forward(self, feats: torch.Tensor, beam_width: int | None = None,
-                lm: torch.Tensor | None = None):
+                lm: torch.Tensor | None = None, text: torch.Tensor | None = None):
         """[B, T, n_in] encoder states ->
 
+        * training (``self.training`` and ``text`` given): teacher forcing
+          on ``text`` [B, >= num_steps] ([GO]-prefixed): step s is fed
+          ``one_hot(text[:, s])``; logits [B, num_steps, classes] of
+          ``generator`` over the hidden states (``attention.py:122-142`` of
+          the JAX package); ``lm`` is refused there;
         * greedy: logits [B, num_steps, classes] of the argmax-fed decode;
           with ``lm`` (a [classes, classes] log-prior in attention index
           space), ``lm[prev]`` is added to each step's float32 logits before
@@ -58,6 +65,8 @@ class Attention(nn.Module):
         * ``beam_width`` W: (tokens [B, W, num_steps], scores [B, W] float32),
           best-first, as :meth:`_beam_decode`.
         """
+        if self.training and text is not None:
+            return self._teacher_forced(feats, text, lm)
         if beam_width is not None:
             return self._beam_decode(feats, int(beam_width), lm)
         cell = self.attention_cell
@@ -75,6 +84,20 @@ class Attention(nn.Module):
             prev = logits.argmax(1)
             out.append(logits)
         return torch.stack(out, 1)
+
+    def _teacher_forced(self, feats, text, lm=None):
+        if lm is not None:
+            raise ValueError("lm fusion is inference-only")
+        cell = self.attention_cell
+        B = feats.shape[0]
+        proj = cell.i2h(feats)
+        h = feats.new_zeros(B, self.hidden)
+        c = feats.new_zeros(B, self.hidden)
+        hs = []
+        for s in range(self.num_steps):
+            h, c = cell.step(feats, proj, h, c, text[:, s].long(), self.num_classes)
+            hs.append(h)
+        return self.generator(torch.stack(hs, 1))
 
     def _beam_decode(self, feats, W: int, lm=None):
         """Beam search over the decode (``attention.py:172-263`` of the JAX

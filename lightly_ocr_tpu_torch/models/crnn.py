@@ -1,10 +1,12 @@
 """CRNN recognizer: TPS -> ResNet -> BiLSTM x2 -> CTC or attention (port).
 
 Port of ``lightly_ocr_tpu/models/crnn.py`` (reference ``ocr/model.py:
-64-118``) for inference: ``transform`` None or TPS, ``sequence`` None or
-biLSTM, ``prediction`` CTC (a linear head named ``Prediction``, so its
-``weight``/``bias`` keys are the reference's) or Attention (greedy or beam
-decode, with an optional LM prior).
+64-118``): ``transform`` None or TPS, ``sequence`` None or biLSTM,
+``prediction`` CTC (a linear head named ``Prediction``, so its
+``weight``/``bias`` keys are the reference's) or Attention (in ``train()``
+teacher-forced on ``text``; in ``eval()`` greedy or beam decode, with an
+optional LM prior).  A ``quant=True`` model refuses a forward that could
+train it (``train()`` mode with gradients on), as the JAX package does.
 ``quant=True`` runs the ResNet's convs as w8a8 :class:`QuantConv`; TPS,
 BiLSTM and the heads stay float, as in the JAX package.
 """
@@ -24,6 +26,7 @@ class CRNNet(nn.Module):
     def __init__(self, cfg: Config, quant: bool = False):
         super().__init__()
         self.cfg = cfg
+        self.quant = quant
         cin = cfg.derived_input_channel
         self.Transformation = (
             TPS_STN(cfg.num_fiducial, cfg.height, cfg.width, cin)
@@ -41,10 +44,12 @@ class CRNNet(nn.Module):
             self.Prediction = Attention(n, cfg.hidden_size, cfg.derived_num_classes,
                                         cfg.num_steps)
 
-    def forward(self, images: torch.Tensor, beam_width: int | None = None,
-                lm: torch.Tensor | None = None):
+    def forward(self, images: torch.Tensor, text: torch.Tensor | None = None,
+                beam_width: int | None = None, lm: torch.Tensor | None = None):
         """[B, H, W, C] in [-1, 1] -> logits: per frame [B, W', classes]
-        (CTC), or of the greedy decode [B, num_steps, classes]; with
+        (CTC), or [B, num_steps, classes] of the attention head: teacher
+        forced on ``text`` in ``train()``, else the greedy decode (in
+        ``eval()`` ``text`` is not read); with
         ``beam_width`` (Attention only) the beam's (tokens, scores).  ``lm``
         is the Attention head's shallow-fusion prior; the CTC prior is fused
         in ``ops.ctc.ctc_beam_search_decode`` over the logits."""
@@ -60,6 +65,13 @@ class CRNNet(nn.Module):
                     "lm applies to the Attention head only; the CTC "
                     "prior is fused inside ctc_beam_search_decode"
                 )
+        if self.quant and self.training and torch.is_grad_enabled():
+            raise ValueError(
+                "quant=True is an inference-only mode: QuantConv's rounding "
+                "has zero gradient, so training would silently freeze every "
+                "backbone conv.  Train in float and enable quant_int8 only "
+                "for serving (call .eval() to serve)."
+            )
         p = next(self.parameters())
         x = images.permute(0, 3, 1, 2).to(p.dtype)
         if self.Transformation is not None:
@@ -70,4 +82,4 @@ class CRNNet(nn.Module):
             x = self.SequenceModeling(x)
         if self.cfg.prediction == "CTC":
             return self.Prediction(x)
-        return self.Prediction(x, beam_width, lm)
+        return self.Prediction(x, beam_width, lm, text=text)

@@ -98,10 +98,10 @@ def decode_crops(net, crops: torch.Tensor, cfg: Config, lm: torch.Tensor | None 
     """[K, H, W, 1] normalized crops -> (idx [K, S], confidence [K]): the
     recognizer ``net`` and the decode of ``cfg``."""
     if cfg.prediction != "CTC" and cfg.attn_decode == "beam":
-        tokens, scores = net(crops, cfg.beam_width, lm)
+        tokens, scores = net(crops, beam_width=cfg.beam_width, lm=lm)
         return tokens[:, 0], torch.exp(scores[:, 0].float())
     if cfg.prediction != "CTC" and lm is not None:
         # greedy fusion runs inside the decode loop: the prior steers the
         # fed-back token, not only the readout
-        return decode_preds(net(crops, None, lm), cfg)
+        return decode_preds(net(crops, lm=lm), cfg)
     return decode_preds(net(crops), cfg, lm)

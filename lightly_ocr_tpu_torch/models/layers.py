@@ -6,6 +6,7 @@ loads with ``strict=True``.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -14,27 +15,68 @@ from torch import nn
 
 
 class BatchNorm2d(nn.Module):
-    """Inference BatchNorm (eps 1e-5) with the torch parameter names.
+    """BatchNorm (eps 1e-5) with the torch parameter names and flax's
+    training rule (``lightly_ocr_tpu/models/layers.py::batch_norm``).
+
+    In ``eval()`` it normalises with the running statistics.  In
+    ``train()`` it normalises with the batch's statistics over (N, H, W),
+    computed in float32, and moves the running statistics by
+    ``running = 0.9 * running + 0.1 * batch`` (flax's ``momentum=0.9``)
+    with the *biased* batch variance, as flax stores it (``nn.BatchNorm2d``
+    stores the unbiased one).  While ``frozen_stats`` is set (a forward
+    recomputed for the backward, :func:`frozen_batch_stats`) the running
+    statistics stay as they are.
 
     Unlike ``nn.BatchNorm2d`` it has no ``num_batches_tracked`` buffer: the
-    port never trains, and the JAX tree has no such leaf.  As flax's
-    ``BatchNorm``, it keeps its parameters in float32 whatever the compute
-    dtype (:func:`to_serving`), computes in float32 and rounds once to the
-    input's dtype."""
+    JAX tree has no such leaf, and strict loads of its state dicts stay
+    exact.  As flax's ``BatchNorm``, it keeps its parameters in float32
+    whatever the compute dtype (:func:`to_serving`), computes in float32
+    and rounds once to the input's dtype."""
+
+    momentum = 0.1  # the share of the batch statistics (flax: 1 - 0.9)
 
     def __init__(self, num_features: int, eps: float = 1e-5):
         super().__init__()
         self.eps = eps
+        self.frozen_stats = False
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.batch_norm(
-            x, self.running_mean, self.running_var, self.weight, self.bias,
-            training=False, eps=self.eps,
-        )
+        if not self.training:
+            return F.batch_norm(
+                x, self.running_mean, self.running_var, self.weight, self.bias,
+                training=False, eps=self.eps,
+            )
+        dt = torch.promote_types(x.dtype, torch.float32)  # at least float32, as flax
+        y, mean, invstd = torch.native_batch_norm(
+            x.to(dt), self.weight.to(dt), self.bias.to(dt), None, None, True,
+            self.momentum, self.eps)
+        if not self.frozen_stats:
+            with torch.no_grad():
+                var = (invstd.pow(-2) - self.eps).clamp_min_(0.0)  # biased
+                self.running_mean.mul_(1.0 - self.momentum).add_(
+                    mean.to(self.running_mean.dtype), alpha=self.momentum)
+                self.running_var.mul_(1.0 - self.momentum).add_(
+                    var.to(self.running_var.dtype), alpha=self.momentum)
+        return y.to(x.dtype)
+
+
+@contextlib.contextmanager
+def frozen_batch_stats(module: nn.Module):
+    """Hold the running statistics of every :class:`BatchNorm2d` in
+    ``module`` while the block runs (a forward recomputed by
+    ``torch.utils.checkpoint`` must not count its batch a second time)."""
+    norms = [m for m in module.modules() if isinstance(m, BatchNorm2d)]
+    for m in norms:
+        m.frozen_stats = True
+    try:
+        yield
+    finally:
+        for m in norms:
+            m.frozen_stats = False
 
 
 def int8_scale(amax: torch.Tensor) -> torch.Tensor:
@@ -233,4 +275,41 @@ def init_module(module: nn.Module, generator: torch.Generator) -> nn.Module:
             k = 1.0 / math.sqrt(m.hidden_size)
             for p in m.parameters(recurse=False):
                 p.copy_(uniform(p.shape, k))
+    return module
+
+
+@torch.no_grad()
+def init_train_params(module: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Seeded training initialisation of ``module`` with flax's defaults, as
+    ``CRNNet.init`` gives them in the JAX package (not :func:`init_module`'s
+    serving-test distributions):
+
+    * convolution and linear weights lecun-normal (a normal of variance
+      1/fan_in truncated at two standard deviations, flax's
+      ``variance_scaling(1, "fan_in", "truncated_normal")``), biases zero;
+    * BatchNorm weight 1, bias 0, running statistics (0, 1);
+    * LSTM tensors symmetric U(-1/sqrt(H), 1/sqrt(H)) (torch's rule, which
+      the JAX package copies: ``layers.py::torch_rnn_init``);
+    * modules marked ``_keep_init`` (the TPS ``localization_fc2``: zero
+      weight, the fiducial points as bias, flax's init of that layer) keep
+      the values they are built with."""
+    # flax divides the std by the std of a unit normal truncated at +-2
+    trunc_std = 0.87962566103423978
+    for m in module.modules():
+        if getattr(m, "_keep_init", False):
+            continue
+        if isinstance(m, (nn.Conv2d, nn.Linear)):
+            std = math.sqrt(1.0 / m.weight[0].numel()) / trunc_std
+            nn.init.trunc_normal_(m.weight, 0.0, std, -2 * std, 2 * std, generator=generator)
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, BatchNorm2d):
+            m.weight.fill_(1.0)
+            m.bias.zero_()
+            m.running_mean.zero_()
+            m.running_var.fill_(1.0)
+        elif isinstance(m, (nn.LSTM, nn.LSTMCell)):
+            k = 1.0 / math.sqrt(m.hidden_size)
+            for p in m.parameters(recurse=False):
+                nn.init.uniform_(p, -k, k, generator=generator)
     return module

@@ -1,9 +1,12 @@
-"""CTC decoding on the device: greedy (best path) and prefix beam search.
+"""CTC on the device: the training losses, greedy (best path) and prefix
+beam search decoding.
 
-Port of ``lightly_ocr_tpu/ops/ctc.py::ctc_greedy_decode`` and
-``::ctc_beam_search_decode``.  The JAX package computes both in XLA (no
-Pallas kernel), so stock PyTorch ops serve here.  The CTC losses of that
-module are training-side and not ported yet.
+Port of ``lightly_ocr_tpu/ops/ctc.py`` (``ctc_loss``,
+``ctc_forward_logprob``, ``cross_entropy_ignore_index``,
+``ctc_greedy_decode``, ``ctc_beam_search_decode``).  The JAX package
+computes all of them in XLA (no Pallas kernel), so stock PyTorch ops serve
+here: the loss is ``F.ctc_loss``, whose forward equals the JAX package's
+log-semiring recursion to round-off.
 """
 from __future__ import annotations
 
@@ -27,6 +30,44 @@ def _logsumexp2(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     m_safe = torch.where(finite, m, 0.0)
     s = torch.exp(a - m_safe) + torch.exp(b - m_safe)
     return torch.where(finite, m_safe + torch.log(torch.where(finite, s, 1.0)), _NEG_INF)
+
+
+def ctc_forward_logprob(log_probs: torch.Tensor, labels: torch.Tensor,
+                        input_lengths: torch.Tensor, label_lengths: torch.Tensor) -> torch.Tensor:
+    """Per-sample log P(labels | log_probs), [B]: ``log_probs`` [B, T, C]
+    log-softmax outputs (class 0 the blank), ``labels`` [B, L] padded (the
+    padding is masked by ``label_lengths``).  ``-inf`` where no alignment
+    exists (the JAX package returns ~-1e30 there)."""
+    return -F.ctc_loss(log_probs.transpose(0, 1), labels, input_lengths, label_lengths,
+                       blank=0, reduction="none", zero_infinity=False)
+
+
+def ctc_loss(log_probs: torch.Tensor, labels: torch.Tensor, input_lengths: torch.Tensor,
+             label_lengths: torch.Tensor, reduction: str = "mean",
+             zero_infinity: bool = True) -> torch.Tensor:
+    """Negative log-likelihood CTC loss with torch's semantics, as the JAX
+    package's: "mean" divides each sample's loss by its target length
+    (at least 1), then averages over the batch; ``zero_infinity`` zeroes
+    the loss (and its gradient) of a sample no alignment can produce.
+
+    ``F.ctc_loss``'s backward assumes ``log_probs`` came out of a
+    ``log_softmax``: its gradient is right with respect to the logits
+    upstream of that, not as a gradient of arbitrary log-probabilities."""
+    if reduction not in ("none", "sum", "mean"):
+        raise ValueError(f"unknown reduction {reduction!r}")
+    return F.ctc_loss(log_probs.transpose(0, 1), labels, input_lengths, label_lengths,
+                      blank=0, reduction=reduction, zero_infinity=zero_infinity)
+
+
+def cross_entropy_ignore_index(logits: torch.Tensor, targets: torch.Tensor,
+                               ignore_index: int = 0) -> torch.Tensor:
+    """``torch.nn.CrossEntropyLoss(ignore_index=...)`` of the attention head
+    (reference ``crnn.py:116``): the mean NLL over the targets not ignored,
+    divided by ``max(count, 1)`` so that a batch whose every target is
+    ignored gives 0, not NaN.  ``logits`` [..., C], ``targets`` [...]."""
+    nll = -F.log_softmax(logits, dim=-1).gather(-1, targets[..., None].long())[..., 0]
+    mask = (targets != ignore_index).to(nll.dtype)
+    return (nll * mask).sum() / mask.sum().clamp_min(1.0)
 
 
 def ctc_greedy_decode(logits: torch.Tensor, blank: int = 0):

@@ -1,29 +1,62 @@
-"""Index -> text converters (the port's copy of the JAX package's decode
-side of ``lightly_ocr_tpu/text/converters.py``).
+"""Text <-> index converters (the port's copy of
+``lightly_ocr_tpu/text/converters.py``): encoders for training, decoders
+for inference.
 
 Index layouts of the reference (``ocr/tools/recog_utils.py:20-22,57-59``):
 
 * CTC: 0 = ``[blank]``, characters at 1..N;
 * Attention: 0 = ``[GO]``, 1 = ``[s]`` (EOS), characters at 2..N+1.
-
-The encoders serve training, which is not ported yet.
 """
 from __future__ import annotations
+
+from typing import Sequence
 
 import numpy as np
 
 from lightly_ocr_tpu_torch.config import BLANK_TOKEN, EOS_TOKEN, GO_TOKEN
 
 
+def _lookup(table: dict, text: str, who: str) -> list[int]:
+    try:
+        return [table[ch] for ch in text]
+    except KeyError as e:
+        raise ValueError(
+            f"{who}: character {e.args[0]!r} in {text!r} is not in the "
+            "charset; filter labels first (see data pipeline `filtering`)"
+        ) from None
+
+
 class CTCLabelConverter:
-    """Maps indices of the CTC head back to text."""
+    """Maps text <-> indices of the CTC head."""
 
     def __init__(self, character: str):
+        self.dict = {ch: i + 1 for i, ch in enumerate(character)}
         self.character = [BLANK_TOKEN] + list(character)
 
     @property
     def num_classes(self) -> int:
         return len(self.character)
+
+    def encode(self, texts: Sequence[str], batch_max_len: int = 25):
+        """(flat int32 indices of all samples concatenated, int32 lengths),
+        the reference's layout (``recog_utils.py:24-30``)."""
+        lengths = np.asarray([len(s) for s in texts], dtype=np.int32)
+        flat = np.asarray(
+            [i for s in texts for i in _lookup(self.dict, s, "CTC encode")],
+            dtype=np.int32,
+        )
+        return flat, lengths
+
+    def encode_padded(self, texts: Sequence[str], batch_max_len: int = 25):
+        """([B, batch_max_len] int32 labels padded with 0 = blank, [B] int32
+        lengths), the layout of :func:`lightly_ocr_tpu_torch.ops.ctc.ctc_loss`."""
+        batch = np.zeros((len(texts), batch_max_len), dtype=np.int32)
+        lengths = np.zeros((len(texts),), dtype=np.int32)
+        for i, s in enumerate(texts):
+            idx = _lookup(self.dict, s, "CTC encode")[:batch_max_len]
+            batch[i, : len(idx)] = idx
+            lengths[i] = len(idx)
+        return batch, lengths
 
     def decode(self, indices, lengths) -> list[str]:
         """Greedy collapse per sample: repeats merged, then blanks dropped.
@@ -70,7 +103,7 @@ class CTCLabelConverter:
 
 
 class AttnLabelConverter:
-    """Maps indices of the attention decoder back to text."""
+    """Maps text <-> indices of the attention decoder."""
 
     def __init__(self, character: str):
         self.character = [GO_TOKEN, EOS_TOKEN] + list(character)
@@ -83,6 +116,17 @@ class AttnLabelConverter:
     @property
     def eos_index(self) -> int:
         return self.dict[EOS_TOKEN]
+
+    def encode(self, texts: Sequence[str], batch_max_len: int = 25):
+        """([B, batch_max_len + 2] int32, [B] int32 lengths): position 0 is
+        [GO], then the text, then [s], padded with [GO] (0); a length is
+        len(text) + 1 (``recog_utils.py:83-92``, every sample encoded)."""
+        lengths = np.asarray([len(s) + 1 for s in texts], dtype=np.int32)
+        batch = np.zeros((len(texts), batch_max_len + 2), dtype=np.int32)
+        for i, s in enumerate(texts):
+            idx = _lookup(self.dict, s, "Attn encode") + [self.eos_index]
+            batch[i, 1 : 1 + len(idx)] = idx
+        return batch, lengths
 
     def decode_trimmed(self, batch_indices) -> list[str]:
         """Decode and truncate at the first EOS; ``[GO]`` (a control token

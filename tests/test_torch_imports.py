@@ -29,7 +29,8 @@ mods = [m.name for m in pkgutil.walk_packages(lightly_ocr_tpu_torch.__path__,
 for m in mods:
     importlib.import_module(m)
 for m in ("engines", "pipeline", "ops.poly", "ops.ctc", "serving.server", "serving.ingress",
-          "serving.upload"):
+          "serving.upload", "train.trainer", "train.train_step", "data.records", "data.loader",
+          "data.generator", "data.lmdb_compat", "utils.checkpoint", "utils.metrics"):
     assert "lightly_ocr_tpu_torch." + m in mods, m
 import chip_smoke
 from lightly_ocr_tpu_torch.serving.server import (BatchedServeModel, InferenceWorker, create_app,
@@ -38,6 +39,10 @@ from lightly_ocr_tpu_torch.serving.ingress import create_ingress_app
 from lightly_ocr_tpu_torch.serving.upload import decode_upload
 from lightly_ocr_tpu_torch.ops.ctc import ctc_beam_search_decode
 from lightly_ocr_tpu_torch.models.decode import load_lm_prior
+from lightly_ocr_tpu_torch.train.trainer import Trainer, build_loaders, main
+from lightly_ocr_tpu_torch.data.loader import DataLoader, resize_bicubic_uint8
+from lightly_ocr_tpu_torch.data.records import RecordDataset, decode_image
+from lightly_ocr_tpu_torch.data.generator import synthesize_words
 assert "jax" not in sys.modules or sys.modules["jax"] is None
 print("imported", len(mods))
 """
