@@ -58,8 +58,8 @@ exits non-zero with the traceback):
    behind ``InferenceWorker``, 2 dispatches at b16; receipts/s;
 10. ``http``: the HTTP front end in this process (``create_app`` behind
     ``make_server`` on 127.0.0.1, a free port, the threaded server class of
-    ``run_server``), receipts sent as PNG encoded here (stdlib ``zlib``; the
-    card's machine has no PIL): (a) the per-image float32 ``serveModel`` of
+    ``run_server``), receipts sent as PNG encoded by ``data.records.encode_png``
+    (stdlib ``zlib``; the card's machine has no PIL): (a) the per-image float32 ``serveModel`` of
     phase 8 behind ``create_app``'s default worker, every answer equal to
     ``predict`` on the decoded upload, kernel #2 in every request; (b) bf16
     ``tail,s2d`` ``BatchedServeModel`` behind ``InferenceWorker``, a burst of
@@ -98,7 +98,24 @@ exits non-zero with the traceback):
     train step, samples/s, peak memory, CUDA kernels a step and the top 5
     by device time, for Attention and CTC at b64 and b192, remat and
     ``grad_accum=2``; the loader's ms a batch and the numpy PNG decode of a
-    word by row filter.
+    word by row filter;
+14. ``craft``: CRAFT detector training (``VGG_UNet``; float32, TF32 off):
+    (a) one step at b2 128x96 on a ``synthesize_batch`` from the seeded
+    training init, card against CPU: in float32 the loss and each gradient
+    held to the CPU's float64 within max(1e-3, 4x the CPU float32's own
+    distance), in float64 within 1e-10 (loss) and 1e-8 (gradients), the
+    OHEM masks equal in both; and a step with ``freeze=("slice1",)`` that
+    leaves slice1's parameters and moves its BatchNorm statistics; (b)
+    ``python -m lightly_ocr_tpu_torch.train.trainer --model CRAFT --records``
+    as a subprocess on 64 receipts of 320x256 drawn here (word rects and
+    transcripts, PNG without PIL), 300 steps at b8: the loss falls and the
+    held-out region IoU at 0.15 rises; (c) its checkpoint loaded strictly
+    into ``engines.CRAFT`` and into ``BatchedOCR`` in bf16 ``tail,s2d``, one
+    dispatch of 16 receipts at 960x640 canvases: kernels #1, #2 and #5
+    launch, box counts and the mean box IoU of the two paths; (d) ms a step,
+    samples/s, the device's time and kernels, the forward / OHEM / backward
+    / clip + Adam split, peak memory and the float32 bound at b8 960x640 and
+    b4 256x192; and the pseudo-label loader's host ms a batch.
 
 Then one JSON line with each kernel's numbers, and as the last line
 ``{"ok": true, "device": {...}}``.  TF32 is switched OFF for float32 matmuls
@@ -119,7 +136,6 @@ import os
 import queue
 import re
 import shutil
-import struct
 import subprocess
 import sys
 import tempfile
@@ -127,7 +143,6 @@ import threading
 import time
 import urllib.error
 import urllib.request
-import zlib
 
 import numpy as np
 import torch
@@ -160,8 +175,21 @@ TRAIN_LOG_EVERY = 20  # the CLI run's val_interval: its log's train_loss is a 20
 TRAIN_SAVE_EVERY = 100  # the CLI run's save_interval
 TRAIN_SPEED_STEPS = 20  # timed steps a speed case, after 3 warm-up steps
 TRAIN_DEADLINE_S = 900  # for the trainer subprocess
+CRAFT_PARITY_B, CRAFT_PARITY_HW = 2, (128, 96)  # phase craft (a): one step, card vs CPU
+CRAFT_LOSS64_TOL = 1e-10  # float64 on both: the loss (relative),
+CRAFT_GRAD64_TOL = 1e-8  # each gradient (relative L2),
+CRAFT_ZERO64 = 1e-12  # a zero gradient (a conv bias before a BatchNorm): its norm over the global norm,
+CRAFT_ZERO32 = 1e-5  # and in float32, or up to TRAIN_GRAD_FACTOR x the CPU float32's
+CRAFT_RECEIPTS, CRAFT_HELD_OUT = 64, 8  # receipts of the detection records, and held out
+CRAFT_REC_HW = (320, 256)  # their size, and the CLI run's canvas
+CRAFT_STEPS, CRAFT_BATCH, CRAFT_LOG_EVERY = 300, 8, 20  # the CLI run
+CRAFT_IOU_THRESH = 0.15  # eval_region_iou's threshold (tests/test_pseudo_labels.py)
+CRAFT_SPEED = ((8, 960, 640), (4, 256, 192))  # (batch, height, width) of the speed cases
+CRAFT_SPEED_STEPS = 10  # timed steps a speed case, after 3 warm-up steps
+CRAFT_DEADLINE_S = 600  # for the CRAFT trainer subprocess
 # H100 SXM data-sheet peaks (dense): bf16 and int8 tensor cores, HBM3
 PEAK_BF16_FLOPS = 989e12
+PEAK_FP32_FLOPS = 67e12  # float32 outside the tensor cores (TF32 off)
 PEAK_INT8_OPS = 1979e12
 PEAK_BYTES = 3.35e12
 # seam tail kernel vs plain: both round at the same bf16 cast points, so
@@ -691,33 +719,6 @@ def stage_times(ocr, imgs) -> dict:
     return out
 
 
-def png_bytes(img: np.ndarray, filt: int = 2) -> bytes:
-    """uint8 RGB [H, W, 3] or gray [H, W] -> 8-bit PNG bytes (colour type 2
-    or 0), every row filtered with ``filt`` (0 None, 1 Sub, 2 Up, 3 Average,
-    4 Paeth); stdlib ``zlib`` and ``struct`` (the card's machine has no
-    PIL)."""
-    H, W = img.shape[:2]
-    ch = 1 if img.ndim == 2 else img.shape[2]
-    x = img.reshape(H, W * ch).astype(np.int16)
-    up = np.vstack([np.zeros((1, W * ch), np.int16), x[:-1]])
-    left = np.hstack([np.zeros((H, ch), np.int16), x[:, :-ch]])
-    upleft = np.hstack([np.zeros((H, ch), np.int16), up[:, :-ch]])
-    if filt == 4:
-        p = left + up - upleft
-        pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - upleft)
-        pred = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, upleft))
-    else:
-        pred = [0 * x, left, up, (left + up) // 2][filt]
-    raw = np.hstack([np.full((H, 1), filt, np.uint8), ((x - pred) % 256).astype(np.uint8)])
-
-    def chunk(kind: bytes, body: bytes) -> bytes:
-        return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body))
-
-    ctype = 0 if ch == 1 else 2
-    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", W, H, 8, ctype, 0, 0, 0))
-            + chunk(b"IDAT", zlib.compress(raw.tobytes())) + chunk(b"IEND", b""))
-
-
 def multipart(filename: str, content: bytes, field: str = "file") -> tuple[bytes, str]:
     boundary = "chipsmoke7c1f"
     head = (f"--{boundary}\r\nContent-Disposition: form-data; name=\"{field}\"; "
@@ -769,11 +770,12 @@ def http_phase(cfg, det_sd, rec_sd, imgs, engine_model, smi: str) -> dict:
     """Phase ``http``: (a) the per-image model behind ``create_app``'s
     default worker, (b) a burst into the batched model, (c) the error
     paths, and the front end's host costs.  Returns numbers for the log."""
+    from lightly_ocr_tpu_torch.data.records import encode_png
     from lightly_ocr_tpu_torch.serving import server
     from lightly_ocr_tpu_torch.serving.upload import decode_png, decode_upload
 
     tmp = tempfile.mkdtemp(prefix="lightly_ocr_http_")
-    pngs = [png_bytes(im) for im in imgs]
+    pngs = [encode_png(im) for im in imgs]
     out = {}
     try:
         # the front end's host work per upload: multipart parse, PNG decode by filter
@@ -785,7 +787,7 @@ def http_phase(cfg, det_sd, rec_sd, imgs, engine_model, smi: str) -> dict:
         out["multipart_ms"] = 1e3 * (time.perf_counter() - t) / 10
         decode_ms = {}
         for filt, name in enumerate(("none", "sub", "up", "average", "paeth")):
-            data = png_bytes(imgs[0], filt)
+            data = encode_png(imgs[0], filt)
             t = time.perf_counter()
             got = decode_png(data)
             decode_ms[name] = 1e3 * (time.perf_counter() - t)
@@ -1042,14 +1044,14 @@ def word_image(text: str, font: dict, rng: np.random.Generator) -> np.ndarray:
 def word_records(path: str, n: int, font: dict, charset: str, seed: int) -> list:
     """``n`` seeded words of 3-7 characters written as PNG records with the
     port's ``RecordWriter``; returns the labels."""
-    from lightly_ocr_tpu_torch.data.records import RecordWriter
+    from lightly_ocr_tpu_torch.data.records import RecordWriter, encode_png
 
     rng = np.random.default_rng(seed)
     labels = []
     with RecordWriter(path) as w:
         for _ in range(n):
             text = "".join(rng.choice(list(charset), size=int(rng.integers(3, 8))))
-            w.add(text, png_bytes(word_image(text, font, rng)))
+            w.add(text, encode_png(word_image(text, font, rng)))
             labels.append(text)
     return labels
 
@@ -1335,6 +1337,7 @@ def train_speed(base, records: str, smi: str, dev: str) -> None:
 def png_unfilter_words(smi: str) -> None:
     """The numpy PNG decode of a word record, one row filter at a time (PIL
     writes word records with a mix of Up, Paeth and Sub rows)."""
+    from lightly_ocr_tpu_torch.data.records import encode_png
     from lightly_ocr_tpu_torch.serving.upload import decode_png
 
     rng = np.random.default_rng(SEED)
@@ -1342,7 +1345,7 @@ def png_unfilter_words(smi: str) -> None:
     img = np.concatenate([word_image("abcdefghij", font, rng)] * 2, axis=1)[:, :200]  # 32x200 gray
     parts = []
     for filt, fname in enumerate(("None", "Sub", "Up", "Average", "Paeth")):
-        data = png_bytes(img, filt)
+        data = encode_png(img, filt)
         assert (decode_png(data)[..., 0] == img).all(), fname
         t = time.perf_counter()
         for _ in range(20):
@@ -1397,6 +1400,414 @@ def train_phase(smi: str, dev: str = "cuda", base=None) -> None:
         shutil.rmtree(work, ignore_errors=True)
 
 
+def det_receipt(rng: np.random.Generator, h: int, w: int) -> tuple:
+    """A receipt of glyph words (dark stroke blocks, as ``synthesize_batch``
+    draws them) on paper noise: (uint8 RGB [h, w, 3], [{"rect": [r0, c0, r1,
+    c1], "text": ...}] of its words, one line after another)."""
+    paper = 235 + rng.standard_normal((h, w)) * 4
+    words = []
+    y = int(rng.integers(8, 20))
+    while True:
+        ch_h = int(rng.integers(14, 26))
+        if y + ch_h > h - 8:
+            break
+        x = int(rng.integers(6, 30))
+        while True:
+            n = int(rng.integers(2, 8))
+            ch_w = int(rng.integers(9, max(10, ch_h)))
+            gap = max(2, ch_w // 4)
+            ww = n * ch_w + (n - 1) * gap
+            if x + ww > w - 6:
+                break
+            for i in range(n):
+                cc = x + i * (ch_w + gap)
+                glyph = 30 + rng.random((ch_h, ch_w)) * 70
+                glyph[2:-2, 2:-2] = np.where(rng.random((ch_h - 4, ch_w - 4)) < 0.4, glyph[2:-2, 2:-2], 220)
+                paper[y:y + ch_h, cc:cc + ch_w] = glyph
+            words.append({"rect": [y, x, y + ch_h, x + ww],
+                          "text": "".join(rng.choice(list("abcdefghij"), size=n))})
+            x += ww + int(rng.integers(12, 30))
+        y += ch_h + int(rng.integers(10, 30))
+    return np.repeat(np.clip(paper, 0, 255).astype(np.uint8)[..., None], 3, -1), words
+
+
+def craft_grads(host: dict, dev: str) -> dict:
+    """One forward and backward of ``VGG_UNet`` from ``init_craft_state``'s
+    seeded init on ``host`` (a ``synthesize_batch``), on the CPU in float64
+    (the reference) and float32 and on ``dev`` in float32 and float64:
+    ``{run: (loss, {name: gradient}, [OHEM positives, hard negatives of
+    each map], seconds)}``."""
+    from lightly_ocr_tpu_torch.train.craft import batch_to, init_craft_state, ohem_masks, ohem_mse
+
+    runs = {}
+    for name, where, dt in (("cpu64", "cpu", torch.float64), ("cpu", "cpu", torch.float32),
+                            ("card", dev, torch.float32), ("card64", dev, torch.float64)):
+        model, _ = init_craft_state(SEED, device=where)
+        model.to(dt)
+        b = batch_to(host, where)
+        t = time.perf_counter()
+        maps, _ = model(b["images"].to(dt))
+        maps = maps.to(torch.promote_types(maps.dtype, torch.float32))
+        loss = ohem_mse(maps[..., 0], b["region"]) + ohem_mse(maps[..., 1], b["affinity"])
+        loss.backward()
+        masks = [m.cpu() for i, k in enumerate(("region", "affinity"))
+                 for m in ohem_masks(maps[..., i].detach(), b[k])[1:]]
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        runs[name] = (loss.item(), {n: p.grad.detach().cpu().double() for n, p in model.named_parameters()},
+                      masks, time.perf_counter() - t)
+        del model, maps, loss
+    return runs
+
+
+def craft_gates(runs: dict) -> tuple[str, list]:
+    """Phase ``craft`` (a)'s gates: -> (a line of the readings, the gates
+    that failed).  float32: the loss and each gradient against the CPU's
+    float64 within max(TRAIN_GRAD_TOL, TRAIN_GRAD_FACTOR x the CPU
+    float32's own distance); float64: the loss within CRAFT_LOSS64_TOL and
+    each gradient within CRAFT_GRAD64_TOL; the OHEM masks of each map equal
+    on both sides in either dtype.  A gradient that is zero in the float64
+    reference (the bias of a conv that feeds a BatchNorm) is held to zero:
+    its norm within CRAFT_ZERO64 (float64) or max(CRAFT_ZERO32,
+    TRAIN_GRAD_FACTOR x the CPU float32's) of the global norm."""
+    (l64, g64, m64, _), (lc, g32, mc, _), (lg, gg, mg, _), (lg64, gg64, mg64, _) = (
+        runs[k] for k in ("cpu64", "cpu", "card", "card64"))
+    total = float(torch.linalg.vector_norm(torch.stack([g.norm() for g in g64.values()])))
+    zero = {n for n, g in g64.items() if g.norm() < CRAFT_ZERO64 * total}
+
+    def rel(g, n):
+        return ((g[n] - g64[n]).norm() / g64[n].norm()).item()
+
+    def size(g, n):  # a zero gradient's norm over the global one
+        return (g[n].norm() / total).item()
+
+    live = [n for n in g64 if n not in zero]
+    bound = {n: max(TRAIN_GRAD_TOL, TRAIN_GRAD_FACTOR * rel(g32, n)) for n in live}
+    bound0 = {n: max(CRAFT_ZERO32, TRAIN_GRAD_FACTOR * size(g32, n)) for n in zero}
+    worst = max(live, key=lambda n: rel(gg, n) / bound[n])
+    worst64 = max(live, key=lambda n: rel(gg64, n))
+    worst0 = max(zero, key=lambda n: size(gg, n) / bound0[n]) if zero else None
+    zero64 = max((size(gg64, n) for n in zero), default=0.0)
+    loss_err, loss_cpu_err = abs(lg - l64) / abs(l64), abs(lc - l64) / abs(l64)
+    loss_bound = max(TRAIN_GRAD_TOL, TRAIN_GRAD_FACTOR * loss_cpu_err)
+    loss64_err = abs(lg64 - l64) / abs(l64)
+    flips32 = [int((a != b).sum()) for a, b in zip(mg, mc)]
+    flips64 = [int((a != b).sum()) for a, b in zip(mg64, m64)]
+    line = (f"loss {lg:.6f} vs the CPU's float64 {l64:.6f} (rel {loss_err:.2e}, bound {loss_bound:.2e}; the "
+            f"CPU float32's {loss_cpu_err:.2e}; float64 on the card {loss64_err:.2e} off, tol "
+            f"{CRAFT_LOSS64_TOL}); gradients against the CPU's float64, rel L2: the card's float32 worst "
+            f"against its bound {worst} {rel(gg, worst):.2e} (bound {bound[worst]:.2e}), its largest "
+            f"{max(rel(gg, n) for n in live):.2e}, the CPU float32's largest {max(rel(g32, n) for n in live):.2e}; "
+            f"the card's float64 worst {worst64} {rel(gg64, worst64):.2e} (tol {CRAFT_GRAD64_TOL}); "
+            f"{len(zero)} zero gradients (conv biases before a BatchNorm), their largest norm over the global "
+            f"{total:.4f}: card float32 {size(gg, worst0) if zero else 0.0:.2e} (bound "
+            f"{bound0[worst0] if zero else 0.0:.2e}), card float64 {zero64:.2e} (tol {CRAFT_ZERO64}); "
+            f"over {len(g64)} tensors; OHEM masks (region pos, hard neg, affinity pos, hard neg) "
+            f"{[int(m.sum()) for m in m64]} pixels, card vs CPU differ at float32 {flips32}, float64 {flips64}")
+    failed = [gate for gate, ok in (
+        ("loss float32", loss_err <= loss_bound), ("loss float64", loss64_err <= CRAFT_LOSS64_TOL),
+        (f"gradient float32 {worst}", rel(gg, worst) <= bound[worst]),
+        (f"gradient float64 {worst64}", rel(gg64, worst64) <= CRAFT_GRAD64_TOL),
+        (f"zero gradient float32 {worst0}", not zero or size(gg, worst0) <= bound0[worst0]),
+        ("zero gradient float64", zero64 <= CRAFT_ZERO64),
+        ("OHEM masks float32", not any(flips32)), ("OHEM masks float64", not any(flips64))) if not ok]
+    return line, failed
+
+
+def craft_parity(smi: str, dev: str) -> None:
+    """Phase ``craft`` (a): one step's loss, gradients and OHEM masks, card
+    against CPU (:func:`craft_gates`); and a step with ``freeze=("slice1",)``
+    on the card: slice1's parameters unchanged, its BatchNorm running means
+    moved, the decoder moved."""
+    from lightly_ocr_tpu_torch.train.craft import batch_to, init_craft_state, make_craft_train_step, synthesize_batch
+
+    host = synthesize_batch(np.random.default_rng(SEED), CRAFT_PARITY_B, *CRAFT_PARITY_HW)
+    runs = craft_grads(host, dev)
+    line, failed = craft_gates(runs)
+    log(f"craft b{CRAFT_PARITY_B} {CRAFT_PARITY_HW[0]}x{CRAFT_PARITY_HW[1]} card vs CPU: {line}; first "
+        f"forward+backward {runs['card'][3]:.2f} s card, {runs['cpu'][3]:.2f} s CPU; on {smi}")
+    assert not failed, f"craft: the card's step is off: {failed}"
+    model, state = init_craft_state(SEED, device=dev, freeze=("slice1",))
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    _, metrics = make_craft_train_step(model, freeze=("slice1",))(state, batch_to(host, dev))
+    after = model.state_dict()
+    s1 = [k for k in after if k.startswith("basenet.slice1.")]
+    pinned = [k for k in s1 if not k.endswith(("running_mean", "running_var"))]
+    assert all(torch.equal(after[k], before[k]) for k in pinned), "craft freeze: slice1 moved"
+    means = [k for k in s1 if k.endswith("running_mean")]
+    assert all(not torch.equal(after[k], before[k]) for k in means), "craft freeze: slice1 statistics held"
+    assert not torch.equal(after["upconv1.conv.0.weight"], before["upconv1.conv.0.weight"])
+    log(f"craft freeze slice1 on the card: {len(pinned)} slice1 parameters unchanged, {len(means)} running "
+        f"means moved; loss {metrics['loss'].item():.6f}, raw grad norm {metrics['grad_norm'].item():.4f} "
+        f"(frozen gradients in it, out of the clip); on {smi}")
+
+
+def craft_cli(work: str, smi: str, dev: str) -> dict:
+    """Phase ``craft`` (b): detection records of CRAFT_RECEIPTS receipts
+    (drawn in numpy, PNG without PIL), then ``python -m
+    lightly_ocr_tpu_torch.train.trainer --model CRAFT --records ...`` as a
+    subprocess on the card; the loss must fall and the held-out region IoU
+    must rise.  Returns the checkpoint directory and the records."""
+    from lightly_ocr_tpu_torch.models.vgg_unet import VGG_UNet
+    from lightly_ocr_tpu_torch.train.craft import init_craft_state
+    from lightly_ocr_tpu_torch.train.pseudo_labels import (
+        batches_from_records,
+        eval_region_iou,
+        write_detection_records,
+    )
+    from lightly_ocr_tpu_torch.utils.checkpoint import load_variables_for_inference
+
+    rng = np.random.default_rng(SEED)
+    records, held_out = os.path.join(work, "det.lor"), os.path.join(work, "held_out.lor")
+    t = time.perf_counter()
+    write_detection_records(records, (det_receipt(rng, *CRAFT_REC_HW) for _ in range(CRAFT_RECEIPTS)))
+    write_detection_records(held_out, (det_receipt(rng, *CRAFT_REC_HW) for _ in range(CRAFT_HELD_OUT)))
+    write_s = time.perf_counter() - t
+    held = next(batches_from_records(held_out, CRAFT_HELD_OUT, *CRAFT_REC_HW, np.random.default_rng(SEED + 1)))
+    model0, _ = init_craft_state(SEED, device=dev)  # the CLI's init (its --seed is SEED)
+    iou0 = eval_region_iou(model0, held, CRAFT_IOU_THRESH)
+    del model0
+    ckpt = os.path.join(work, "craft_ckpt")
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(filter(None, [root, os.environ.get("PYTHONPATH")]))}
+    cmd = [sys.executable, "-m", "lightly_ocr_tpu_torch.train.trainer", "--model", "CRAFT", "--records", records,
+           "--num-steps", str(CRAFT_STEPS), "--batch", str(CRAFT_BATCH), "--height", str(CRAFT_REC_HW[0]),
+           "--width", str(CRAFT_REC_HW[1]), "--seed", str(SEED), "--log-every", str(CRAFT_LOG_EVERY),
+           "--checkpoint-dir", ckpt]
+    if dev != "cuda":  # the default device is the card
+        cmd += ["--device", dev]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=work, env=env, capture_output=True, text=True, timeout=CRAFT_DEADLINE_S)
+    wall = time.perf_counter() - t0
+    assert proc.returncode == 0, f"craft trainer exited {proc.returncode}:\n{proc.stderr[-4000:]}"
+    assert "Traceback" not in proc.stderr, "craft trainer: traceback in stderr:\n" + proc.stderr[-4000:]
+    device_line = [ln for ln in proc.stdout.splitlines() if ln.startswith(f"craft training on device {dev}")]
+    assert device_line, "craft trainer: its log does not name the device:\n" + proc.stdout[-2000:]
+    logged = [float(x) for x in re.findall(r"craft step \d+/\d+ loss ([\d.]+)", proc.stdout)]
+    final = re.search(r"final loss ([\d.]+) \(first ([\d.]+)\)", proc.stdout)
+    assert final and len(logged) == CRAFT_STEPS // CRAFT_LOG_EVERY, proc.stdout[-2000:]
+    last, first = float(final.group(1)), float(final.group(2))
+    model1 = VGG_UNet()
+    model1.load_state_dict(load_variables_for_inference(ckpt), strict=True)
+    iou1 = eval_region_iou(model1.to(dev), held, CRAFT_IOU_THRESH)
+    log(f"craft cli: {' '.join(cmd[1:5])} ... {CRAFT_STEPS} steps at b{CRAFT_BATCH} "
+        f"{CRAFT_REC_HW[0]}x{CRAFT_REC_HW[1]} on {CRAFT_RECEIPTS} receipts ({write_s:.2f} s to draw and "
+        f"write them) in {wall:.2f} s; {device_line[0]}; loss of step 1 {first:.5f}, of step {CRAFT_STEPS} "
+        f"{last:.5f}; loss every {CRAFT_LOG_EVERY} steps {logged}; held-out region IoU at "
+        f"{CRAFT_IOU_THRESH}: init {iou0:.4f}, trained {iou1:.4f}; on {smi}")
+    assert last < first, "craft cli: the loss did not fall"
+    assert iou1 > iou0, "craft cli: the held-out region IoU did not rise"
+    return {"ckpt": ckpt, "records": records}
+
+
+def craft_serve(ckpt: str, smi: str, dev: str) -> None:
+    """Phase ``craft`` (c): the trained checkpoint (strict loads) in
+    ``engines.CRAFT`` (float32) and in ``BatchedOCR`` (bf16 ``tail,s2d``, a
+    seeded CTC recognizer), one dispatch of BATCH receipts at 600x400
+    (960x640 canvases); kernels #1, #2 and #5 must launch in it."""
+    from lightly_ocr_tpu_torch.config import Config
+    from lightly_ocr_tpu_torch.engines import CRAFT
+    from lightly_ocr_tpu_torch.models.crnn import CRNNet
+    from lightly_ocr_tpu_torch.models.layers import init_module
+    from lightly_ocr_tpu_torch.serving.batch import BatchedOCR
+    from lightly_ocr_tpu_torch.utils.checkpoint import load_variables_for_inference
+
+    sd = load_variables_for_inference(ckpt)
+    cfg = Config(prediction="CTC", transform="None", compute_dtype="bfloat16", quant_int8=False,
+                 max_boxes=BOXES)
+    rec_sd = init_module(CRNNet(cfg), torch.Generator().manual_seed(SEED)).state_dict()
+    rng = np.random.default_rng(SEED + 2)
+    imgs = [det_receipt(rng, RECEIPT_H, RECEIPT_W)[0] for _ in range(BATCH)]
+    engine = CRAFT(cfg, state_dict=sd, device=dev)
+    eng = [engine.detect_rects(im) for im in imgs]
+    ocr = BatchedOCR(cfg, sd, rec_sd, boxes_per_image=BOXES, device=dev)
+    (cb, _), _ = next(iter(ocr.group(imgs).items()))
+    ocr.run_images(imgs[:2])  # warm
+    reset_launch_counts()
+    out = ocr.run_images(imgs)
+    launches = launch_counts()
+    bat = [[it["rect"] for it in items] for items in out]
+    ious = [np.mean([max(rect_iou(r, e) for e in es) for r in bs]) for bs, es in zip(bat, eng) if len(bs) and len(es)]
+    log(f"craft serve: the trained checkpoint, b{BATCH} receipts {RECEIPT_H}x{RECEIPT_W} on {cb[0]}x{cb[1]} "
+        f"canvases: boxes per receipt engines.CRAFT float32 {[len(e) for e in eng]}, BatchedOCR bf16 "
+        f"tail,s2d {[len(b) for b in bat]}; mean box IoU of the batched path against the engine "
+        f"{float(np.mean(ious)) if ious else float('nan'):.4f} over {len(ious)} receipts with boxes on both; "
+        f"launches {launches}; on {smi}")
+    for k in ("seam_tail", "cc", "conv12_pool"):
+        assert launches[k] > 0, f"craft serve: {k} did not launch: {launches}"
+
+
+def craft_speed(records: str, smi: str, dev: str) -> None:
+    """Phase ``craft`` (d): the train step of ``train_craft`` at each of
+    CRAFT_SPEED (float32, TF32 off): ms a step (median of CRAFT_SPEED_STEPS
+    after 3 warm-up steps, host clock around a synchronise), samples/s, the
+    device's time of one step and its CUDA kernels (torch.profiler), the
+    forward, OHEM loss, backward and clip + Adam by CUDA events, peak memory,
+    the forward by module, and the bound: ``flop_counter``'s FLOPs of
+    forward and backward over the float32 peak; at the first size also the
+    step with ``torch.backends.cudnn.benchmark`` on.  Then the pseudo-label loader's host ms a b8 batch at
+    960x640 from the records, split by stage."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from lightly_ocr_tpu_torch.data.loader import resize_bilinear_uint8
+    from lightly_ocr_tpu_torch.data.records import RecordDataset
+    from lightly_ocr_tpu_torch.train.craft import (
+        apply_craft_update,
+        batch_to,
+        craft_loss,
+        init_craft_state,
+        make_craft_train_step,
+        ohem_mse,
+        synthesize_batch,
+    )
+    from lightly_ocr_tpu_torch.train.pseudo_labels import (
+        _decode_sample,
+        batches_from_records,
+        char_boxes_from_word,
+        render_craft_targets,
+    )
+
+    rng = np.random.default_rng(SEED)
+    for B, H, W in CRAFT_SPEED:
+        batch = batch_to(synthesize_batch(rng, B, H, W), dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+        base_mem = torch.cuda.memory_allocated()
+        model, state = init_craft_state(SEED, device=dev)
+        step = make_craft_train_step(model)
+        params = list(model.parameters())
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(3):
+            step(state, batch)
+        times = []
+        for _ in range(CRAFT_SPEED_STEPS):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            _, metrics = step(state, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+        assert np.isfinite(metrics["loss"].item())
+        peak = (torch.cuda.max_memory_allocated() - base_mem) / 2 ** 30
+        prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
+        with prof:
+            step(state, batch)
+            torch.cuda.synchronize()
+        kern = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+        n_kernels = sum(e.count for e in kern)
+        busy = sum(e.device_time_total for e in kern) / 1e3
+        top = sorted(kern, key=lambda e: e.device_time_total, reverse=True)[:5]
+        parts = []
+        for _ in range(5):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+            state.optimizer.zero_grad(set_to_none=True)
+            ev[0].record()
+            maps, _ = model(batch["images"])
+            ev[1].record()
+            loss = ohem_mse(maps[..., 0].float(), batch["region"]) + ohem_mse(maps[..., 1].float(), batch["affinity"])
+            ev[2].record()
+            loss.backward()
+            ev[3].record()
+            apply_craft_update(state.optimizer, params, [False] * len(params))
+            ev[4].record()
+            torch.cuda.synchronize()
+            parts.append([ev[i].elapsed_time(ev[i + 1]) for i in range(4)])
+        parts = np.median(parts, axis=0)
+        state.optimizer.zero_grad(set_to_none=True)
+        with torch.no_grad():  # the forward by module (cuDNN picks its algorithms per shape)
+            fwd = module_ms(model.basenet, [f"slice{i}" for i in range(1, 6)], lambda: model(batch["images"]))
+            fwd.update(module_ms(model, ["upconv1", "upconv2", "upconv3", "upconv4", "conv_cls"],
+                                 lambda: model(batch["images"])))
+        bench = ""
+        if (B, H, W) == CRAFT_SPEED[0]:  # what cuDNN's autotuner would pick (not set by the port)
+            torch.backends.cudnn.benchmark = True
+            try:
+                for _ in range(3):
+                    step(state, batch)
+                tb = []
+                for _ in range(CRAFT_SPEED_STEPS):
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    step(state, batch)
+                    torch.cuda.synchronize()
+                    tb.append(time.perf_counter() - t)
+            finally:
+                torch.backends.cudnn.benchmark = False
+            bench = (f"; with torch.backends.cudnn.benchmark on (not the port's setting) "
+                     f"{1e3 * float(np.median(tb)):.3f} ms a step, {B / float(np.median(tb)):.2f} samples/s")
+        with FlopCounterMode(display=False) as fc:
+            craft_loss(model, batch).backward()
+        flops = fc.get_total_flops()
+        state.optimizer.zero_grad(set_to_none=True)
+        ms = 1e3 * float(np.median(times))
+        bound = 1e3 * flops / PEAK_FP32_FLOPS
+        log(f"craft speed b{B} {H}x{W}: {ms:.3f} ms a step (median of {CRAFT_SPEED_STEPS}; min "
+            f"{1e3 * min(times):.3f}, max {1e3 * max(times):.3f}; host clock), {B / ms * 1e3:.2f} samples/s; "
+            f"device {busy:.3f} ms, {n_kernels} CUDA kernels a step (torch.profiler); forward {parts[0]:.3f}, "
+            f"OHEM loss {parts[1]:.3f}, backward {parts[2]:.3f}, clip + Adam {parts[3]:.3f} ms (CUDA events, "
+            f"median of 5); peak memory {peak:.2f} GiB above the {base_mem / 2 ** 30:.2f} held before; "
+            f"{flops / 1e12:.3f} TFLOP forward + backward (flop_counter), bound {bound:.3f} ms at "
+            f"{PEAK_FP32_FLOPS / 1e12:.0f} TFLOP/s float32 ({bound / ms:.1%} of it); on {smi}")
+        log(f"craft speed b{B} {H}x{W} forward by module ms (CUDA events, no grad): "
+            + ", ".join(f"{k} {v:.3f}" for k, v in fwd.items()) + f"{bench}; on {smi}")
+        log(f"craft speed b{B} {H}x{W} kernels by device time: "
+            + "; ".join(f"{e.key[:60]} x{e.count} {e.device_time_total / 1e3:.3f} ms" for e in top)
+            + f" on {smi}")
+        del model, state, step, batch, params, maps, loss
+    # the pseudo-label loader, b8 at 960x640 from the 320x256 records
+    B, H, W = CRAFT_SPEED[0]
+    it = batches_from_records(records, B, H, W, np.random.default_rng(SEED))
+    next(it)
+    t = time.perf_counter()
+    for _ in range(3):
+        next(it)
+    batch_ms = 1e3 * (time.perf_counter() - t) / 3
+    it.close()
+    ds = RecordDataset(records, filtering=False)
+    split = dict.fromkeys(("decode", "resize", "split", "render"), 0.0)
+    for i in range(B):
+        t0 = time.perf_counter()
+        img, words = _decode_sample(*ds.raw(i))
+        t1 = time.perf_counter()
+        resized = resize_bilinear_uint8(img, W, H).astype(np.float32)
+        t2 = time.perf_counter()
+        gray = resized @ np.asarray([0.299, 0.587, 0.114], np.float32)
+        sy, sx = H / img.shape[0], W / img.shape[1]
+        boxes = [char_boxes_from_word(gray, (w["rect"][0] * sy, w["rect"][1] * sx, w["rect"][2] * sy,
+                                             w["rect"][3] * sx), w["text"]) for w in words]
+        t3 = time.perf_counter()
+        render_craft_targets(H // 2, W // 2, boxes)
+        t4 = time.perf_counter()
+        for k, a, b in (("decode", t0, t1), ("resize", t1, t2), ("split", t2, t3), ("render", t3, t4)):
+            split[k] += 1e3 * (b - a)
+    ds.close()
+    log(f"craft loader: {batch_ms:.2f} ms a b{B} {H}x{W} batch from {CRAFT_REC_HW[0]}x{CRAFT_REC_HW[1]} PNG "
+        f"records on the host (one thread); a batch's parts: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in split.items()) + f" ms; host of {smi}")
+
+
+def craft_phase(smi: str, dev: str = "cuda") -> None:
+    """Phase ``craft``: CRAFT detector training, (a) card vs CPU, (b) the
+    trainer CLI on detection records, (c) the trained detector served,
+    (d) speed; float32 with TF32 off."""
+    work = tempfile.mkdtemp(prefix="lightly_ocr_craft_")
+    try:
+        t0 = time.perf_counter()
+        craft_parity(smi, dev)
+        log(f"phase craft (a) parity: {time.perf_counter() - t0:.2f} s")
+        t0 = time.perf_counter()
+        out = craft_cli(work, smi, dev)
+        log(f"phase craft (b) cli: {time.perf_counter() - t0:.2f} s")
+        t0 = time.perf_counter()
+        craft_serve(out["ckpt"], smi, dev)
+        log(f"phase craft (c) serve: {time.perf_counter() - t0:.2f} s")
+        t0 = time.perf_counter()
+        craft_speed(out["records"], smi, dev)
+        log(f"phase craft (d) speed: {time.perf_counter() - t0:.2f} s")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing run",
@@ -1404,6 +1815,7 @@ def main() -> int:
         return 2
     t_all = time.perf_counter()
     from lightly_ocr_tpu_torch.config import Config
+    from lightly_ocr_tpu_torch.data.records import encode_png
     from lightly_ocr_tpu_torch.models.crnn import CRNNet
     from lightly_ocr_tpu_torch.models.layers import init_module
     from lightly_ocr_tpu_torch.models.vgg_unet import VGG_UNet
@@ -1630,7 +2042,7 @@ def main() -> int:
                    {"attention": rps, "ctc": c_rps}, smi)
         log(f"phase beam: {time.perf_counter() - t0:.2f} s")
         t0 = time.perf_counter()
-        cli_phase(prior_path, png_bytes(imgs[0]), smi)
+        cli_phase(prior_path, encode_png(imgs[0]), smi)
         log(f"phase cli: {time.perf_counter() - t0:.2f} s")
     finally:
         shutil.rmtree(lm_dir, ignore_errors=True)
@@ -1639,6 +2051,11 @@ def main() -> int:
     t0 = time.perf_counter()
     train_phase(smi)
     log(f"phase train: {time.perf_counter() - t0:.2f} s")
+
+    # -- phase 14: CRAFT detector training on the card ------------------------
+    t0 = time.perf_counter()
+    craft_phase(smi)
+    log(f"phase craft: {time.perf_counter() - t0:.2f} s")
 
     # launches: each kernel's count over the timed run of the path that
     # drives it (the bf16 default plan for the seam tail, CC and #5, the bf16

@@ -12,7 +12,8 @@ written in numpy (:func:`resize_bicubic_uint8`) so that the loader runs on
 hosts without PIL: the same filter (a = -0.5, support widened by the
 downscale factor), the same per-output-pixel windows and normalised
 coefficients in 22-bit fixed point, two passes (width, then height), each
-rounded and clipped to uint8.
+rounded and clipped to uint8.  :func:`resize_bilinear_uint8` is PIL's
+``BILINEAR`` by the same machinery (the detector's pseudo-label loader).
 
 The loader is a thread-prefetched iterator over a record dataset; the
 samplers draw from numpy generators as the JAX package's do, so one seed
@@ -40,20 +41,30 @@ def _bicubic(x: np.ndarray) -> np.ndarray:
     return np.where(x < 1.0, near, np.where(x < 2.0, far, 0.0))
 
 
-def _coeffs(in_size: int, out_size: int) -> tuple[np.ndarray, np.ndarray]:
+def _triangle(x: np.ndarray) -> np.ndarray:
+    """PIL's bilinear filter."""
+    return np.maximum(1.0 - np.abs(x), 0.0)
+
+
+# PIL's filters by name: (function, support at scale 1)
+_FILTERS = {"bicubic": (_bicubic, 2.0), "bilinear": (_triangle, 1.0)}
+
+
+def _coeffs(in_size: int, out_size: int, kind: str = "bicubic") -> tuple[np.ndarray, np.ndarray]:
     """PIL's ``precompute_coeffs`` + ``normalize_coeffs_8bpc`` for a full-
-    extent resize: (first input index [out], int64 fixed-point weights
-    [out, ksize], zero past each window)."""
+    extent resize with the filter ``kind``: (first input index [out], int64
+    fixed-point weights [out, ksize], zero past each window)."""
+    fn, base_support = _FILTERS[kind]
     scale = in_size / out_size
     filterscale = max(scale, 1.0)
-    support = 2.0 * filterscale
+    support = base_support * filterscale
     ksize = int(math.ceil(support)) * 2 + 1
     center = (np.arange(out_size) + 0.5) * scale
     # C's (int) cast truncates toward zero
     xmin = np.maximum(np.trunc(center - support + 0.5), 0).astype(np.int64)
     xmax = np.minimum(np.trunc(center + support + 0.5), in_size).astype(np.int64) - xmin
     k = np.arange(ksize)
-    w = _bicubic((k[None, :] + xmin[:, None] - center[:, None] + 0.5) / filterscale)
+    w = fn((k[None, :] + xmin[:, None] - center[:, None] + 0.5) / filterscale)
     w = np.where(k[None, :] < xmax[:, None], w, 0.0)
     ww = w.sum(1, keepdims=True)
     w = np.divide(w, ww, out=w, where=ww != 0.0)
@@ -63,10 +74,10 @@ def _coeffs(in_size: int, out_size: int) -> tuple[np.ndarray, np.ndarray]:
 
 
 @functools.lru_cache(maxsize=256)
-def _matrix(in_size: int, out_size: int) -> np.ndarray:
+def _matrix(in_size: int, out_size: int, kind: str) -> np.ndarray:
     """The fixed-point weights of :func:`_coeffs` as a read-only float64
-    [out, in] matrix (a few hundred KB at most for word crops)."""
-    xmin, kk = _coeffs(in_size, out_size)
+    [out, in] matrix (a few MB at most: word crops, detector canvases)."""
+    xmin, kk = _coeffs(in_size, out_size, kind)
     idx = np.minimum(xmin[:, None] + np.arange(kk.shape[1])[None, :], in_size - 1)
     mat = np.zeros((out_size, in_size))
     np.add.at(mat, (np.arange(out_size)[:, None], idx), kk)  # zero weights past each window
@@ -74,27 +85,39 @@ def _matrix(in_size: int, out_size: int) -> np.ndarray:
     return mat
 
 
-def _pass(img: np.ndarray, axis: int, out_size: int) -> np.ndarray:
+def _pass(img: np.ndarray, axis: int, out_size: int, kind: str) -> np.ndarray:
     """One PIL resampling pass of uint8 ``img`` along ``axis`` (0 rows, 1
     columns), rounded and clipped to uint8.  The fixed-point sums run as a
     float64 matrix product: every term and sum is an integer below 2**53,
     so the result is PIL's integer arithmetic exactly."""
     src = np.moveaxis(img, axis, 0).astype(np.float64)
-    acc = np.tensordot(_matrix(img.shape[axis], out_size), src, axes=(1, 0))
+    acc = np.tensordot(_matrix(img.shape[axis], out_size, kind), src, axes=(1, 0))
     acc += 1 << (_PRECISION_BITS - 1)
     out = np.clip(np.floor(acc / (1 << _PRECISION_BITS)), 0, 255).astype(np.uint8)
     return np.moveaxis(out, 0, axis)
 
 
-def resize_bicubic_uint8(img: np.ndarray, width: int, height: int) -> np.ndarray:
+def resize_uint8(img: np.ndarray, width: int, height: int, kind: str) -> np.ndarray:
     """uint8 [H, W] or [H, W, C] -> uint8 [height, width(, C)], as PIL's
-    ``Image.resize((width, height), Image.BICUBIC)`` (a pass only along an
-    axis whose size changes, width first)."""
+    ``Image.resize((width, height), filter)`` for ``kind`` "bicubic" or
+    "bilinear" (a pass only along an axis whose size changes, width
+    first)."""
     if img.shape[1] != width:
-        img = _pass(img, 1, width)
+        img = _pass(img, 1, width, kind)
     if img.shape[0] != height:
-        img = _pass(img, 0, height)
+        img = _pass(img, 0, height, kind)
     return img
+
+
+def resize_bicubic_uint8(img: np.ndarray, width: int, height: int) -> np.ndarray:
+    """PIL's ``Image.resize((width, height), Image.BICUBIC)``."""
+    return resize_uint8(img, width, height, "bicubic")
+
+
+def resize_bilinear_uint8(img: np.ndarray, width: int, height: int) -> np.ndarray:
+    """PIL's ``Image.resize((width, height), Image.BILINEAR)`` (antialiased
+    when it shrinks: the triangle's support widens by the scale)."""
+    return resize_uint8(img, width, height, "bilinear")
 
 
 def resize_normalize(img: np.ndarray, width: int, height: int) -> np.ndarray:

@@ -18,7 +18,8 @@ Images come back as uint8 numpy arrays ([H, W] gray, or [H, W, 3] with
 (``Image.open(...).convert("L" | "RGB")``).  Without PIL (the card's
 installation), PNG decodes in numpy (:func:`serving.upload.decode_png`,
 equal to PIL's RGB) and turns gray by PIL's integer luma rule; any other
-format raises.
+format raises.  :func:`encode_png` writes PNG without PIL (records drawn
+on the card's machine).
 """
 from __future__ import annotations
 
@@ -27,6 +28,7 @@ import mmap
 import os
 import re
 import struct
+import zlib
 
 import numpy as np
 
@@ -57,6 +59,32 @@ def decode_image(blob: bytes, rgb: bool = False) -> np.ndarray:
         img = decode_png(blob)
         return img if rgb else luma_uint8(img)
     return np.asarray(Image.open(io.BytesIO(blob)).convert("RGB" if rgb else "L"))
+
+
+def encode_png(img: np.ndarray, filt: int = 2) -> bytes:
+    """uint8 RGB [H, W, 3] or gray [H, W] -> 8-bit PNG bytes (colour type 2
+    or 0), every row filtered with ``filt`` (0 None, 1 Sub, 2 Up, 3 Average,
+    4 Paeth); stdlib ``zlib`` and ``struct``, no PIL."""
+    H, W = img.shape[:2]
+    ch = 1 if img.ndim == 2 else img.shape[2]
+    x = img.reshape(H, W * ch).astype(np.int16)
+    up = np.vstack([np.zeros((1, W * ch), np.int16), x[:-1]])
+    left = np.hstack([np.zeros((H, ch), np.int16), x[:, :-ch]])
+    upleft = np.hstack([np.zeros((H, ch), np.int16), up[:, :-ch]])
+    if filt == 4:
+        p = left + up - upleft
+        pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - upleft)
+        pred = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, upleft))
+    else:
+        pred = [0 * x, left, up, (left + up) // 2][filt]
+    raw = np.hstack([np.full((H, 1), filt, np.uint8), ((x - pred) % 256).astype(np.uint8)])
+
+    def chunk(kind: bytes, body: bytes) -> bytes:
+        return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body))
+
+    ctype = 0 if ch == 1 else 2
+    return (PNG_SIGNATURE + chunk(b"IHDR", struct.pack(">IIBBBBB", W, H, 8, ctype, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(raw.tobytes())) + chunk(b"IEND", b""))
 
 
 class RecordWriter:

@@ -11,7 +11,12 @@ methods take and return NHWC like the JAX package.
   runs four :class:`UpConv` blocks and the 5-conv ``conv_cls`` head.
 * ``quant=True`` is the JAX package's w8a8 serving mode: every backbone and
   decoder conv is a :class:`QuantConv` (int8 at 128 channels and wider);
-  the ``conv_cls`` head stays float.
+  the ``conv_cls`` head stays float.  It serves only: ``forward`` refuses it
+  in ``train()``.
+* In ``train()`` every :class:`BatchNorm2d` normalises with the batch's
+  statistics and moves its running ones (flax's rule), as the JAX model
+  called with ``train=True``; :func:`~lightly_ocr_tpu_torch.models.layers.
+  init_train_params` gives it flax's training initialisation.
 """
 from __future__ import annotations
 
@@ -196,6 +201,7 @@ class VGG_UNet(nn.Module):
 
     def __init__(self, quant: bool = False):
         super().__init__()
+        self.quant = quant
         self.basenet = VggBackbone(quant)
         self.upconv1 = UpConv(1024 + 512, 512, 256, quant)
         self.upconv2 = UpConv(256 + 512, 256, 128, quant)
@@ -214,6 +220,13 @@ class VGG_UNet(nn.Module):
     def forward(self, x: torch.Tensor):
         """[B, H, W, 3] canvas -> ([B, H/2, W/2, 2] scores, [B, H/2, W/2, 32]
         feature), NHWC, the plain (un-fused) detector."""
+        if self.quant and self.training:
+            raise ValueError(
+                "quant=True is an inference-only mode: QuantConv's rounding "
+                "has zero gradient, so training would silently freeze every "
+                "backbone conv.  Train in float and enable quant_int8 only "
+                "for serving."
+            )
         p = next(self.parameters())
         s = self.basenet(self._nchw(x).to(p.dtype))
         y = self.upconv1(torch.cat([s["fc7"], s["slice4"]], 1))

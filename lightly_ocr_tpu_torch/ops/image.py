@@ -8,6 +8,8 @@
   antialias: ``F.interpolate(align_corners=False, antialias=False)``), paste
   top-left onto a zero canvas, ImageNet normalisation
   (``imgproc.py:19-35``).
+* ``resize_bilinear`` — that resize alone (cv2's ``INTER_LINEAR``);
+  ``denormalize_mean_variance`` — the normalisation's inverse, clipped.
 * ``rgb_to_gray`` — luma with PIL's ``L`` weights.
 * ``resize_normalize`` — the recognizer feed of one whole crop: PIL
   bicubic with antialias, saturated, scaled to [-1, 1]
@@ -33,6 +35,13 @@ def normalize_mean_variance(img: torch.Tensor) -> torch.Tensor:
     mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=img.device)
     var = torch.tensor(IMAGENET_VAR, dtype=torch.float32, device=img.device)
     return (img.float() - mean * 255.0) / (var * 255.0)
+
+
+def denormalize_mean_variance(img: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`normalize_mean_variance`, clipped to [0, 255]."""
+    mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=img.device)
+    var = torch.tensor(IMAGENET_VAR, dtype=torch.float32, device=img.device)
+    return ((img.float() * var + mean) * 255.0).clamp(0.0, 255.0)
 
 
 class ResizePlan(NamedTuple):
@@ -100,13 +109,20 @@ def pick_gray_bucket(
     )
 
 
+def resize_bilinear(img: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """[H, W, C] or [B, H, W, C] -> float32 at (out_h, out_w): bilinear with
+    half-pixel centres and no antialias (cv2's ``INTER_LINEAR``, the JAX
+    package's ``jax.image.resize(..., antialias=False)``)."""
+    x = img.float()
+    x = (x if x.ndim == 4 else x[None]).permute(0, 3, 1, 2)
+    y = F.interpolate(x, size=(out_h, out_w), mode="bilinear", align_corners=False,
+                      antialias=False).permute(0, 2, 3, 1)
+    return y if img.ndim == 4 else y[0]
+
+
 def make_detector_input(img: torch.Tensor, plan: ResizePlan) -> torch.Tensor:
     """[H, W, 3] RGB -> [canvas_h, canvas_w, 3] normalized canvas."""
-    x = img.float().permute(2, 0, 1)[None]
-    content = F.interpolate(
-        x, size=(plan.target_h, plan.target_w), mode="bilinear",
-        align_corners=False, antialias=False,
-    )[0].permute(1, 2, 0)
+    content = resize_bilinear(img, plan.target_h, plan.target_w)
     canvas = torch.zeros(
         (plan.canvas_h, plan.canvas_w, 3), dtype=torch.float32,
         device=img.device,

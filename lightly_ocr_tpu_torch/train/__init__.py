@@ -1,1 +1,3 @@
-"""CRNN training of the port: the train and eval steps and the trainer."""
+"""Training of the port: the CRNN recognizer (train steps and the trainer)
+and the CRAFT detector (``craft``, with ``pseudo_labels`` for word-box
+records)."""

@@ -37,11 +37,12 @@ from lightly_ocr_tpu_torch.config import Config
 from lightly_ocr_tpu_torch.models.crnn import CRNNet
 from lightly_ocr_tpu_torch.models.layers import frozen_batch_stats, init_train_params
 from lightly_ocr_tpu_torch.ops.ctc import cross_entropy_ignore_index, ctc_loss
+from lightly_ocr_tpu_torch.serving.batch import resolve_device
 
 
 @dataclass
 class TrainState:
-    model: CRNNet
+    model: torch.nn.Module  # CRNNet, or VGG_UNet (train/craft.py)
     optimizer: torch.optim.Optimizer
     step: int = 0
 
@@ -74,9 +75,10 @@ def flatten_lstms(model: torch.nn.Module) -> None:
             m.flatten_parameters()
 
 
-def init_train_state(cfg: Config, seed: int, device="cpu") -> tuple[CRNNet, TrainState]:
+def init_train_state(cfg: Config, seed: int, device="cuda") -> tuple[CRNNet, TrainState]:
     """A :class:`CRNNet` with the seeded training initialisation
-    (:func:`init_train_params`), in training mode on ``device``, and its
+    (:func:`init_train_params`), in training mode on ``device`` (the card
+    unless the caller asks for the CPU; raises without one), and its
     optimizer at step 0."""
     if cfg.quant_int8:
         # the int8 rounding has zero gradient: the quantized convs would
@@ -86,6 +88,7 @@ def init_train_state(cfg: Config, seed: int, device="cpu") -> tuple[CRNNet, Trai
             "rounding blocks gradients) — train in float and flip "
             "quant_int8 on at serving time"
         )
+    device = resolve_device(device)
     model = init_train_params(CRNNet(cfg), torch.Generator().manual_seed(int(seed)))
     model.to(device).train()
     flatten_lstms(model)

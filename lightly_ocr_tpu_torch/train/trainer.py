@@ -20,7 +20,8 @@ As the JAX package's trainer (reference ``ocr/train/crnn.py``):
 It runs on the card unless asked otherwise (``device="cpu"``,
 ``--device cpu``); without a CUDA device the default raises.  The JAX
 trainer shards the batch over a device mesh; this one uses one device.
-``--model CRAFT`` (detector training) is not ported yet.
+``--model CRAFT`` trains the detector: the other arguments go to
+:func:`lightly_ocr_tpu_torch.train.craft.main` (with ``--device``).
 """
 from __future__ import annotations
 
@@ -247,18 +248,24 @@ def build_loaders(cfg: Config, seed: int | None = None):
 
 
 def main(argv: Sequence[str] | None = None) -> int:
-    p = argparse.ArgumentParser(description="CRNN training")
+    p = argparse.ArgumentParser(description="CRNN / CRAFT training")
     p.add_argument("--model", default="CRNN", choices=["CRNN", "CRAFT"],
-                   help="CRAFT (detector training) is not ported yet")
+                   help="CRAFT = detector score-map training "
+                        "(lightly_ocr_tpu_torch.train.craft); extra args pass "
+                        "through to its CLI")
     p.add_argument("--config", default=None)
     p.add_argument("--train-root", default=None)
     p.add_argument("--val-root", default=None)
     p.add_argument("--num-iters", type=int, default=None)
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; the CPU only when asked)")
-    args = p.parse_args(argv)
+    args, extra = p.parse_known_args(argv)
     if args.model == "CRAFT":
-        raise NotImplementedError("CRAFT training is not ported yet (ROADMAP Queue 1)")
+        from lightly_ocr_tpu_torch.train.craft import main as craft_main
+
+        return craft_main([*extra, "--device", args.device])
+    if extra:
+        p.error(f"unrecognized arguments: {' '.join(extra)}")
     cfg = load_config(args.config)
     overrides = {
         k: v

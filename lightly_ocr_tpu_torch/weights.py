@@ -50,12 +50,13 @@ def _flatten(tree: Mapping[str, Any], prefix: tuple = ()):
             yield prefix + (k,), v
 
 
-def state_dict_from_variables(variables: Mapping[str, Any]) -> dict:
-    """Nested ``{collection: {module: ... {leaf: array}}}`` -> ``{key: Tensor}``."""
+def state_dict_from_variables(variables: Mapping[str, Any], dtype=np.float32) -> dict:
+    """Nested ``{collection: {module: ... {leaf: array}}}`` -> ``{key: Tensor}``
+    of ``dtype`` (float32, or float64 to carry a float64 tree whole)."""
     out = {}
     for path, value in _flatten(variables):
         _, *module_path, leaf = path
-        arr = np.asarray(value, np.float32)
+        arr = np.asarray(value, dtype)
         if leaf == "kernel":
             if arr.ndim == 4:
                 arr = arr.transpose(3, 2, 0, 1)

@@ -26,7 +26,7 @@ from lightly_ocr_tpu.utils import metrics as jmetrics
 from lightly_ocr_tpu_torch.config import Config, load_config
 from lightly_ocr_tpu_torch.data import generator
 from lightly_ocr_tpu_torch.data.loader import DataLoader, align_collate, resize_bicubic_uint8
-from lightly_ocr_tpu_torch.data.records import RecordDataset, RecordWriter, open_dataset
+from lightly_ocr_tpu_torch.data.records import RecordDataset, RecordWriter, encode_png, open_dataset
 from lightly_ocr_tpu_torch.engines import CRNN
 from lightly_ocr_tpu_torch.text.converters import build_converter
 from lightly_ocr_tpu_torch.train.train_step import init_train_state, make_train_step
@@ -174,6 +174,24 @@ def test_records_decode_without_pil(words, tmp_path, monkeypatch):
         RecordDataset(jpeg)[0]
 
 
+@pytest.mark.parametrize("shape", [(9, 13), (9, 13, 3), (1, 1, 3), (31, 2)], ids=["gray", "rgb", "pixel", "narrow"])
+def test_encode_png_decodes_under_pil_for_every_filter(shape):
+    """``encode_png`` (no PIL) writes PNG that PIL decodes to the same
+    array, for each row filter (None, Sub, Up, Average, Paeth), gray and
+    RGB; the numpy decoder reads it too."""
+    from PIL import Image
+
+    from lightly_ocr_tpu_torch.serving.upload import decode_png
+
+    img = np.random.default_rng(len(shape)).integers(0, 256, shape).astype(np.uint8)
+    img.flat[0], img.flat[-1] = 0, 255
+    for filt in range(5):
+        data = encode_png(img, filt)
+        np.testing.assert_array_equal(np.asarray(Image.open(io.BytesIO(data))), img, err_msg=str(filt))
+        rgb = decode_png(data)
+        np.testing.assert_array_equal(rgb if img.ndim == 3 else rgb[..., 0], img, err_msg=str(filt))
+
+
 def test_resize_is_pils_bicubic():
     """The numpy resize equals PIL's BICUBIC resize on every pixel, up- and
     downscaling, gray and RGB, at 150 seeded sizes."""
@@ -227,7 +245,7 @@ def test_align_collate_pads_by_replicating_the_last_column():
 
 def _tiny_state(seed=0, **kw):
     cfg = Config(**{**TINY, "prediction": "CTC", "transform": "None", **kw})
-    model, state = init_train_state(cfg, seed)
+    model, state = init_train_state(cfg, seed, "cpu")
     return cfg, model, state
 
 
@@ -349,7 +367,9 @@ def test_trainer_refuses_int8_and_defaults_to_the_card():
 def test_trainer_cli(words, tmp_path, monkeypatch):
     """``python -m lightly_ocr_tpu_torch.train.trainer --device cpu`` trains
     from a JSON config (read without pyyaml, as on the card); without
-    ``--device`` it wants the card; ``--model CRAFT`` is not ported yet."""
+    ``--device`` it wants the card; ``--model CRAFT`` goes to the detector's
+    trainer (which refuses ``--data-parallel``), and a CRAFT flag is refused
+    without it."""
     cfg_path = tmp_path / "tiny.json"
     cfg_path.write_text(json.dumps({**TINY, "prediction": "CTC", "transform": "None",
                                     "val_interval": 2, "save_interval": 2, "max_iter": 1,
@@ -367,8 +387,10 @@ def test_trainer_cli(words, tmp_path, monkeypatch):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             main(["--config", str(cfg_path), "--train-root", words["train"], "--val-root", words["val"]])
-    with pytest.raises(NotImplementedError, match="CRAFT training is not ported yet"):
-        main(["--model", "CRAFT"])
+    with pytest.raises(NotImplementedError, match="Queue 1"):
+        main(["--model", "CRAFT", "--data-parallel", "--device", "cpu"])
+    with pytest.raises(SystemExit):
+        main(["--config", str(cfg_path), "--num-steps", "2", "--device", "cpu"])
     monkeypatch.setitem(sys.modules, "yaml", None)
     assert load_config(str(cfg_path)).output_channel == 32
     (tmp_path / "bad.yml").write_text("output_channel: 32\n")

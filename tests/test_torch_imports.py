@@ -30,7 +30,8 @@ for m in mods:
     importlib.import_module(m)
 for m in ("engines", "pipeline", "ops.poly", "ops.ctc", "serving.server", "serving.ingress",
           "serving.upload", "train.trainer", "train.train_step", "data.records", "data.loader",
-          "data.generator", "data.lmdb_compat", "utils.checkpoint", "utils.metrics"):
+          "data.generator", "data.lmdb_compat", "utils.checkpoint", "utils.metrics", "train.craft",
+          "train.pseudo_labels", "compat"):
     assert "lightly_ocr_tpu_torch." + m in mods, m
 import chip_smoke
 from lightly_ocr_tpu_torch.serving.server import (BatchedServeModel, InferenceWorker, create_app,
@@ -43,6 +44,10 @@ from lightly_ocr_tpu_torch.train.trainer import Trainer, build_loaders, main
 from lightly_ocr_tpu_torch.data.loader import DataLoader, resize_bicubic_uint8
 from lightly_ocr_tpu_torch.data.records import RecordDataset, decode_image
 from lightly_ocr_tpu_torch.data.generator import synthesize_words
+from lightly_ocr_tpu_torch.data.records import encode_png
+from lightly_ocr_tpu_torch.train.craft import init_craft_state, main, train_craft
+from lightly_ocr_tpu_torch.train.pseudo_labels import batches_from_records, write_detection_records
+from lightly_ocr_tpu_torch.compat import getDetBoxes, resizeAspectRatio, CRAFT, loadImage
 assert "jax" not in sys.modules or sys.modules["jax"] is None
 print("imported", len(mods))
 """

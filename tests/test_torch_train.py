@@ -402,7 +402,22 @@ def test_quant_training_is_refused():
         assert net(torch.zeros(2, 32, 64, 1)).shape[0] == 2
         assert net.eval()(torch.zeros(2, 32, 64, 1)).shape[0] == 2
     with pytest.raises(ValueError, match="inference-only"):
-        init_train_state(cfg.replace(quant_int8=True), 0)
+        init_train_state(cfg.replace(quant_int8=True), 0, "cpu")
+
+
+def test_init_train_state_defaults_to_the_card():
+    """Without ``device`` the state is made on ``cuda``: where there is no
+    card that raises, and nothing falls back to the CPU."""
+    import inspect
+
+    assert inspect.signature(init_train_state).parameters["device"].default == "cuda"
+    cfg = Config(**{**_SMALL, **CASES["CTC"]})
+    if torch.cuda.is_available():
+        net, _ = init_train_state(cfg, 0)
+        assert next(net.parameters()).is_cuda
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            init_train_state(cfg, 0)
 
 
 # -- the optimizers --------------------------------------------------------
@@ -441,7 +456,7 @@ def test_optimizer_matches_optax(adam):
 def _port_pair(cfg, seed=0):
     nets = []
     for _ in range(2):
-        net, state = init_train_state(cfg, seed)
+        net, state = init_train_state(cfg, seed, "cpu")
         nets.append((net, state))
     return nets
 
