@@ -115,7 +115,32 @@ exits non-zero with the traceback):
     launch, box counts and the mean box IoU of the two paths; (d) ms a step,
     samples/s, the device's time and kernels, the forward / OHEM / backward
     / clip + Adam split, peak memory and the float32 bound at b8 960x640 and
-    b4 256x192; and the pseudo-label loader's host ms a batch.
+    b4 256x192; and the pseudo-label loader's host ms a batch;
+15. ``parallel``: (a) ``BatchedOCR(mesh=...)`` over every visible card (two
+    replicas on ``cuda:0`` where there is one) on phase 6's receipts and
+    plan: outputs equal entry for entry to the unsharded program on each
+    replica's rows, and to the whole b16 call within 2 px a rect, 95% of
+    texts and 1e-2 a confidence (cuDNN may pick other algorithms for the
+    half batch), kernels #1, #2 and #5 launched once on each replica,
+    receipts/s of each; (b) one CRNN step
+    (``Config()``: TPS + Attention, b8) and one CRAFT step (960x640, b4,
+    OHEM, slice1 frozen) over two ranks (``parallel.launch.spawn``: NCCL on
+    two cards, gloo on one), then over NCCL at world size 1, each in float64
+    held to the single-device step (loss 1e-10, every tensor 1e-8 relative
+    L2, the TPS rectifier 1e-3) and in float32 with the distance printed,
+    and ms a step;
+16. ``export``: ``export_crnn`` (TPS + Attention, full width) and
+    ``export_craft`` on ``cuda``, saved, reloaded and held to the eager
+    modules;
+17. ``native``: ``csrc/postproc.cc`` built with ``g++``; its ``det_boxes``
+    against the card's ``get_det_boxes`` on phase 2's score maps (equal
+    counts, IoU >= 0.97);
+18. ``profile``: ``utils.profiling.trace`` around two b16 dispatches; the
+    Chrome trace must hold the card's kernels and name ``seam_tail``,
+    ``cc_strip`` and ``conv12_pool``;
+and, after phase 5, ``rowpack``: one dispatch of the bf16
+``fused_impl="rowpack"`` plan against the default plan (the CC kernel
+runs, the seam tail and #5 do not; scores within 0.1 of the largest).
 
 Then one JSON line with each kernel's numbers, and as the last line
 ``{"ok": true, "device": {...}}``.  TF32 is switched OFF for float32 matmuls
@@ -187,6 +212,19 @@ CRAFT_IOU_THRESH = 0.15  # eval_region_iou's threshold (tests/test_pseudo_labels
 CRAFT_SPEED = ((8, 960, 640), (4, 256, 192))  # (batch, height, width) of the speed cases
 CRAFT_SPEED_STEPS = 10  # timed steps a speed case, after 3 warm-up steps
 CRAFT_DEADLINE_S = 600  # for the CRAFT trainer subprocess
+PAR_DISPATCHES = 3  # timed dispatches of the mesh and of the unsharded program
+# the mesh against the whole-batch call, where cuDNN may pick other algorithms
+# for the half batch (equal entry for entry to the same rows' unsharded call)
+PAR_PX, PAR_TEXTS, PAR_CONF = 2, 0.95, 1e-2  # rects (px), share of equal texts, confidences
+DP_CRNN_BATCH = 8  # phase parallel: the CRNN step's global batch (Config(): TPS + Attention)
+DP_CRAFT = (4, 960, 640)  # and the CRAFT step's (batch, height, width), slice1 frozen
+DP_STEPS = 3  # timed float32 steps a case, after the compared one
+EXPORT_TOL = 1e-4  # reloaded program vs eager module, max |diff| over max |value| (TF32 off)
+EXPORT_CRAFT_HW = (320, 256)  # the detector's exported canvas
+NATIVE_IOU = 0.97  # host det_boxes vs the card's get_det_boxes (tests/test_native.py)
+NATIVE_IMAGES = 4  # phase-2 score maps compared, and gaussian word maps
+NATIVE_SHARE, NATIVE_MEAN = 0.95, 0.99  # on the phase-2 maps: boxes at NATIVE_IOU, and mean IoU
+ROWPACK_TOL = 0.1  # rowpack plan vs the default: max |score diff| over max |score| (bf16)
 # H100 SXM data-sheet peaks (dense): bf16 and int8 tensor cores, HBM3
 PEAK_BF16_FLOPS = 989e12
 PEAK_FP32_FLOPS = 67e12  # float32 outside the tensor cores (TF32 off)
@@ -1808,6 +1846,561 @@ def craft_phase(smi: str, dev: str = "cuda") -> None:
         shutil.rmtree(work, ignore_errors=True)
 
 
+# -- phases of the twelfth slice: parallel, export, native, profile, rowpack ----
+
+
+def mesh_devices() -> list:
+    """Every visible card, or two replicas on ``cuda:0`` where there is one."""
+    n = torch.cuda.device_count()
+    return [torch.device("cuda", i) for i in range(n)] if n > 1 else [torch.device("cuda", 0)] * 2
+
+
+def parallel_serving(cfg, det_sd, rec_sd, imgs, smi: str) -> dict:
+    """``BatchedOCR(mesh=...)`` against the unsharded program on one b16
+    dispatch: kernels #1, #2 and #5 launched once per replica; the outputs
+    equal to the unsharded program's on each replica's rows, and close to
+    the whole-batch call's (``PAR_*``); receipts/s of each."""
+    from lightly_ocr_tpu_torch.parallel import make_mesh
+    from lightly_ocr_tpu_torch.serving.batch import BatchedOCR
+
+    devices = mesh_devices()
+    plain = BatchedOCR(cfg, det_sd, rec_sd, boxes_per_image=BOXES, device="cuda")
+    sharded = BatchedOCR(cfg, det_sd, rec_sd, boxes_per_image=BOXES,
+                         mesh=make_mesh(len(devices), 1, devices))
+    (cb, gb), _ = next(iter(plain.group(imgs).items()))
+    args = plain.prepare(imgs, cb, gb)
+    want = plain(*args)
+    sharded(*args)  # warm
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    got = sharded(*args)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    n = len(devices)
+    for k in ("seam_tail", "cc", "conv12_pool"):
+        assert launches[k] == n, f"{k} did not launch once on each of the {n} replicas: {launches}"
+    # each replica's chunk through the unsharded program: the same shapes,
+    # so the same kernels and algorithms, entry for entry
+    per = args[0].shape[0] // n
+    chunks = [plain(*(a[i * per:(i + 1) * per] for a in args)) for i in range(n)]
+    exact = {k: torch.equal(got[k], torch.cat([c[k] for c in chunks])) for k in got}
+    diff = {k: int((got[k] != want[k]).sum().item()) for k in ("valid", "rects", "pred_idx")}
+    conf = (got["confidence"] - want["confidence"]).abs().max().item()
+    px = (got["rects"] - want["rects"]).abs().max().item()
+    texts = [(a["text"] == b["text"]) for ra, rb in zip(plain.decode(got), plain.decode(want))
+             for a, b in zip(ra, rb)]
+    log(f"parallel serving: {n} replicas on {[str(d) for d in devices]}; launches {launches}; "
+        f"equal to the unsharded program on each replica's rows: {exact}; against the b"
+        f"{args[0].shape[0]} call: differing entries {diff}, rects max |diff| {px:.0f} px, texts equal "
+        f"{sum(texts)} of {len(texts)}, confidence max |diff| {conf:.3g}")
+    assert all(exact.values()), "the mesh's outputs differ from the unsharded program on the same rows"
+    assert torch.equal(got["valid"], want["valid"]) and px <= PAR_PX and conf <= PAR_CONF \
+        and np.mean(texts) >= PAR_TEXTS, "the mesh's outputs differ from the unsharded call"
+
+    def rate(ocr) -> float:
+        ocr(*args)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(PAR_DISPATCHES):
+            ocr.decode(ocr(*args))
+        torch.cuda.synchronize()
+        return PAR_DISPATCHES * args[0].shape[0] / (time.perf_counter() - t0)
+
+    rps = {"unsharded": rate(plain), f"mesh x{n}": rate(sharded), "unsharded again": rate(plain)}
+    log(f"parallel serving receipts/s (b{args[0].shape[0]}, {PAR_DISPATCHES} dispatches, host decode "
+        f"in the window) on {smi}: " + ", ".join(f"{k} {v:.2f}" for k, v in rps.items()))
+    for label, ocr in (("unsharded", plain), (f"mesh x{n}", sharded)):
+        log(f"parallel serving trace, {label}, one b{args[0].shape[0]} dispatch on {smi}: "
+            + json.dumps(dispatch_trace(ocr, args)))
+    return rps
+
+
+def _union_ms(spans) -> float:
+    """Length of the union of (start, end) spans in us, in ms."""
+    total, end = 0.0, -float("inf")
+    for a, b in sorted(spans):
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total / 1e3
+
+
+def dispatch_trace(ocr, args) -> dict:
+    """``utils.profiling.trace`` of one dispatch (the second of two, so that
+    CUPTI runs from its start): its wall time; the card's kernels, their
+    busy time (the union over streams) and idle share, by stream; and for
+    each host thread, the union of its aten ops, its sync waits and its
+    kernel launches (what holds the card back)."""
+    from lightly_ocr_tpu_torch.utils.profiling import TRACE_FILE, all_threads_supported, annotate, trace
+
+    work = tempfile.mkdtemp(prefix="lightly_ocr_trace_")
+    try:
+        with trace(work, all_threads=all_threads_supported()):
+            for i in range(2):
+                with annotate(f"dispatch {i}"):
+                    ocr(*args)
+                    torch.cuda.synchronize()
+        with open(os.path.join(work, TRACE_FILE)) as f:
+            events = json.load(f)["traceEvents"]
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    span = next(e for e in events if e.get("cat") == "user_annotation" and e.get("name") == "dispatch 1")
+    t0, t1 = span["ts"], span["ts"] + span["dur"]
+
+    def inside(cat):
+        return [e for e in events if e.get("cat") == cat and "dur" in e and t0 <= e["ts"] <= t1]
+
+    kernels, runtime, ops = inside("kernel"), inside("cuda_runtime"), inside("cpu_op")
+    streams: dict = {}
+    for e in kernels:
+        k = str(e.get("args", {}).get("stream", "?"))
+        streams[k] = streams.get(k, 0.0) + e["dur"] / 1e3
+    threads: dict = {}
+    for e in ops + runtime:
+        threads.setdefault(e["tid"], {"ops": [], "sync_ms": 0.0, "launches": 0})
+    for e in ops:
+        threads[e["tid"]]["ops"].append((e["ts"], e["ts"] + e["dur"]))
+    for e in runtime:
+        t = threads[e["tid"]]
+        if "Synchronize" in e["name"] or e["name"].startswith("cudaMemcpy"):
+            t["sync_ms"] += e["dur"] / 1e3
+        elif "LaunchKernel" in e["name"]:
+            t["launches"] += 1
+    wall = span["dur"] / 1e3
+    busy = _union_ms((e["ts"], e["ts"] + e["dur"]) for e in kernels)
+    host = {str(tid): {"ops_ms": round(_union_ms(t["ops"]), 3), "sync_ms": round(t["sync_ms"], 3),
+                       "launches": t["launches"]}
+            for tid, t in threads.items() if t["ops"] or t["launches"]}
+    all_ops = [iv for t in threads.values() for iv in t["ops"]]
+    return {"all_threads": all_threads_supported(), "wall_ms": round(wall, 3), "kernels": len(kernels), "busy_ms": round(busy, 3),
+            "idle_share": round(1 - busy / wall, 4),
+            "busy_ms_by_stream": {k: round(v, 3) for k, v in streams.items()},
+            "host_threads": host,
+            "host_ops_union_ms": round(_union_ms(all_ops), 3),
+            "host_ops_sum_ms": round(sum(_union_ms(t["ops"]) for t in threads.values()), 3)}
+
+
+def dp_inputs(dtype):
+    """The seeded inputs of phase parallel's two steps, made alike in every
+    process: (CRNN config, its init state, its global batch; CRAFT's init
+    state and global batch)."""
+    from lightly_ocr_tpu_torch.config import Config
+    from lightly_ocr_tpu_torch.models.crnn import CRNNet
+    from lightly_ocr_tpu_torch.models.layers import init_train_params
+    from lightly_ocr_tpu_torch.models.vgg_unet import VGG_UNet
+    from lightly_ocr_tpu_torch.text.converters import build_converter
+    from lightly_ocr_tpu_torch.train.craft import synthesize_batch
+
+    cfg = Config(adam=True, lr=1e-3)
+    rng = np.random.default_rng(SEED)
+    words = ["".join(rng.choice(list(cfg.character), size=int(rng.integers(2, 9))))
+             for _ in range(DP_CRNN_BATCH)]
+    text, lengths = build_converter(cfg.prediction, cfg.character).encode(words, cfg.batch_max_len)
+    crnn_batch = {"images": torch.from_numpy(rng.uniform(-1, 1, (DP_CRNN_BATCH, cfg.height, cfg.width, 1)))
+                  .to(dtype), "text": torch.from_numpy(text).long(), "lengths": torch.from_numpy(lengths).long()}
+    b, h, w = DP_CRAFT
+    craft_batch = {k: torch.from_numpy(v).to(dtype) for k, v in synthesize_batch(rng, b, h, w).items()}
+    crnn_sd = init_train_params(CRNNet(cfg), torch.Generator().manual_seed(SEED)).state_dict()
+    craft_sd = init_train_params(VGG_UNet(), torch.Generator().manual_seed(SEED)).state_dict()
+    return cfg, crnn_sd, crnn_batch, craft_sd, craft_batch
+
+
+def dp_step(kind: str, dtype, device, group, rows: slice | None = None):
+    """(model, step function, batch on ``device``) of one case, from
+    :func:`dp_inputs`; ``rows`` takes this process's share of the batch."""
+    from lightly_ocr_tpu_torch.models.crnn import CRNNet
+    from lightly_ocr_tpu_torch.models.vgg_unet import VGG_UNet
+    from lightly_ocr_tpu_torch.train import craft
+    from lightly_ocr_tpu_torch.train.train_step import (TrainState, flatten_lstms, make_optimizer,
+                                                        make_train_step)
+
+    cfg, crnn_sd, crnn_batch, craft_sd, craft_batch = dp_inputs(dtype)
+    if kind == "crnn":
+        model = CRNNet(cfg)
+        model.load_state_dict(crnn_sd)
+        model.to(device, dtype).train()
+        flatten_lstms(model)
+        state = TrainState(model, make_optimizer(cfg, model.parameters()))
+        step, batch = make_train_step(model, cfg, group), crnn_batch
+    else:
+        model = VGG_UNet()
+        model.load_state_dict(craft_sd)
+        model.to(device, dtype).train()
+        state = TrainState(model, craft.make_craft_optimizer(model.parameters()))
+        step, batch = craft.make_craft_train_step(model, freeze=("slice1",), group=group), craft_batch
+    rows = rows or slice(None)
+    batch = {k: v[rows].to(device) for k, v in batch.items()}
+    return model, state, step, batch
+
+
+def dp_compare(a: dict, b: dict, skip=frozenset()) -> tuple[float, str, float]:
+    """(largest relative L2 over tensors outside the TPS rectifier, its
+    name, largest in the rectifier) of two ``{name: tensor}``, less the
+    names in ``skip``."""
+    worst, name, rect = 0.0, "", 0.0
+    for k, v in b.items():
+        if k in skip:
+            continue
+        r = (a[k].double() - v.double()).norm().item() / max(v.double().norm().item(), 1e-30)
+        if k.startswith("Transformation."):
+            rect = max(rect, r)
+        elif r > worst:
+            worst, name = r, k
+    return worst, name, rect
+
+
+def dp_worker(device, group=None) -> dict | None:
+    """One rank of phase parallel's training: each case (CRNN, CRAFT) in
+    float64 and float32 takes one data-parallel step on this rank's rows;
+    rank 0 then takes the single-device step on the whole batch and
+    returns the distances, and the ms of ``DP_STEPS`` further float32
+    steps of each (data-parallel, and single-device on rank 0)."""
+    from lightly_ocr_tpu_torch.parallel.collectives import group_rank, group_size
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank, n = group_rank(group), group_size(group)
+    out = {}
+    for dtype in (torch.float64, torch.float32):
+        for kind in ("crnn", "craft"):
+            per = (DP_CRNN_BATCH if kind == "crnn" else DP_CRAFT[0]) // n
+            model, state, step, batch = dp_step(kind, dtype, device, group,
+                                                slice(rank * per, (rank + 1) * per))
+            state, m = step(state, batch)
+            got = {"loss": m["loss"].item(), "grad_norm": m["grad_norm"].item(),
+                   "grads": {k: p.grad.detach().clone() for k, p in model.named_parameters()
+                             if p.grad is not None},
+                   "state": {k: v.detach().clone() for k, v in model.state_dict().items()}}
+            ms = None
+            if dtype == torch.float32:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(DP_STEPS):
+                    state, m = step(state, batch)
+                torch.cuda.synchronize()
+                ms = 1e3 * (time.perf_counter() - t0) / DP_STEPS
+            del model, state, step, batch
+            if rank == 0:
+                model, state, step, batch = dp_step(kind, dtype, device, None)
+                state, m = step(state, batch)
+                ref = {"loss": m["loss"].item(), "grad_norm": m["grad_norm"].item(),
+                       "grads": {k: p.grad.detach() for k, p in model.named_parameters()
+                                 if p.grad is not None},
+                       "state": model.state_dict()}
+                # gradients zero but for round-off (conv biases before a BatchNorm):
+                # held to zero, and out of the state's comparison (Adam moves them by
+                # lr * g / (|g| + eps) of their round-off g)
+                norm = ref["grad_norm"]
+                small = CRAFT_ZERO64 if dtype == torch.float64 else CRAFT_ZERO32
+                zero = {k for k, g in ref["grads"].items() if g.double().norm().item() < small * norm}
+                zero_worst = max((got["grads"][k].double().norm().item() / norm for k in zero), default=0.0)
+                gw, gname, grect = dp_compare(got["grads"], ref["grads"], zero)
+                sw, sname, srect = dp_compare(got["state"], ref["state"], zero)
+                exact = all(torch.equal(got["state"][k], v) for k, v in ref["state"].items())
+                ref_ms = None
+                if dtype == torch.float32:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    for _ in range(DP_STEPS):
+                        state, m = step(state, batch)
+                    torch.cuda.synchronize()
+                    ref_ms = 1e3 * (time.perf_counter() - t0) / DP_STEPS
+                out[(kind, str(dtype).split(".")[1])] = {
+                    "loss": (got["loss"], ref["loss"]), "grad_norm": (got["grad_norm"], ref["grad_norm"]),
+                    "grad_rel": gw, "grad_worst": gname, "grad_rect": grect,
+                    "state_rel": sw, "state_worst": sname, "state_rect": srect, "bitwise": exact,
+                    "zero": len(zero), "zero_worst": zero_worst,
+                    "ms": ms, "ref_ms": ref_ms, "ranks": n}
+                del model, state, step, batch, ref
+            del got
+            torch.cuda.empty_cache()
+    return out if rank == 0 else None
+
+
+def parallel_training(smi: str) -> None:
+    """Phase parallel's training: two ranks (gloo on one card, NCCL on
+    two), then the NCCL path at world size 1, each against the
+    single-device step."""
+    from lightly_ocr_tpu_torch.parallel.launch import backend_for, spawn
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    for devices in (mesh_devices()[:2], [torch.device("cuda", 0)]):
+        backend = backend_for(devices)
+        t0 = time.perf_counter()
+        res = spawn(dp_worker, (), devices)
+        log(f"parallel training: {len(devices)} rank(s) on {[str(d) for d in devices]} over {backend} "
+            f"({time.perf_counter() - t0:.2f} s with the processes' start)")
+        for (kind, dt), r in res.items():
+            rel = lambda a: abs(a[0] - a[1]) / max(abs(a[1]), 1e-30)  # noqa: E731
+            log(f"  {kind} {dt}: loss {r['loss'][0]:.10g} vs {r['loss'][1]:.10g} (rel {rel(r['loss']):.3g}), "
+                f"grad_norm rel {rel(r['grad_norm']):.3g}; gradients max rel L2 {r['grad_rel']:.3g} "
+                f"({r['grad_worst']}), rectifier {r['grad_rect']:.3g}, the {r['zero']} zero ones "
+                f"{r['zero_worst']:.3g} of the norm; state after the update {r['state_rel']:.3g} "
+                f"({r['state_worst']}), rectifier {r['state_rect']:.3g}; bit for bit {r['bitwise']}"
+                + (f"; ms a step: {len(devices)} rank(s) {r['ms']:.2f}, one process {r['ref_ms']:.2f} "
+                   f"on {smi}" if r["ms"] is not None else ""))
+        for (kind, dt), r in res.items():
+            if dt == "float64":
+                rel = abs(r["loss"][0] - r["loss"][1]) / abs(r["loss"][1])
+                assert rel <= TRAIN_LOSS64_TOL, f"{kind}: the data-parallel loss differs"
+                assert r["grad_rel"] <= TRAIN_GRAD64_TOL and r["state_rel"] <= TRAIN_GRAD64_TOL, \
+                    f"{kind}: the data-parallel step differs from the single-device one"
+                assert r["grad_rect"] <= TRAIN_GRAD64_TPS_TOL and r["state_rect"] <= TRAIN_GRAD64_TPS_TOL, \
+                    f"{kind}: the data-parallel TPS rectifier differs"
+                assert r["zero_worst"] <= CRAFT_ZERO64, f"{kind}: a zero gradient is not zero"
+
+
+def export_phase(smi: str) -> None:
+    """``export_crnn`` (Config(): TPS + Attention) and ``export_craft`` on
+    the card: saved, reloaded, and held to the eager modules."""
+    from lightly_ocr_tpu_torch.config import Config
+    from lightly_ocr_tpu_torch.export import export_craft, export_crnn, load_exported, save_exported
+    from lightly_ocr_tpu_torch.models.crnn import CRNNet
+    from lightly_ocr_tpu_torch.models.layers import init_train_params
+    from lightly_ocr_tpu_torch.models.vgg_unet import VGG_UNet
+
+    cfg = Config()
+    h, w = EXPORT_CRAFT_HW
+    work = tempfile.mkdtemp(prefix="lightly_ocr_export_")
+    try:
+        for name, make, net, x in (
+                ("CRNN", lambda: export_crnn(cfg, batch=2, device="cuda"), CRNNet(cfg),
+                 torch.rand(2, cfg.height, cfg.width, 1, device="cuda") * 2 - 1),
+                ("CRAFT", lambda: export_craft(batch=1, height=h, width=w, device="cuda"), VGG_UNet(),
+                 torch.randn(1, h, w, 3, device="cuda"))):
+            t0 = time.perf_counter()
+            exported, _ = make()
+            t_export = time.perf_counter() - t0
+            path = os.path.join(work, f"{name}.pt2")
+            t0 = time.perf_counter()
+            save_exported(exported, path)
+            restored = load_exported(path).module()
+            t_io = time.perf_counter() - t0
+            init_train_params(net, torch.Generator().manual_seed(0))
+            net = net.cuda().eval()
+            with torch.no_grad():
+                got, want = restored(x), net(x)
+                if name == "CRAFT":
+                    got, want = got[0], want[0]
+                err = ((got - want).abs().max() / want.abs().max()).item()
+                ms = cuda_ms(lambda: restored(x), iters=3)
+                eager_ms = cuda_ms(lambda: net(x), iters=3)
+            log(f"export {name}: {tuple(got.shape)} in {t_export:.2f} s, save + load {t_io:.2f} s, "
+                f"{os.path.getsize(path)} bytes; reloaded vs eager max |diff| {err:.3g} of max |value|; "
+                f"ms a call: reloaded {ms:.2f}, eager {eager_ms:.2f} on {smi}")
+            assert torch.isfinite(got).all() and err <= EXPORT_TOL, f"export {name}: reloaded != eager"
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def quad_iou(a: np.ndarray, b: np.ndarray) -> float:
+    """IoU of two convex quadrilaterals ``[4, 2]``: Sutherland-Hodgman
+    clipping of one by the other, shoelace areas."""
+    def area(p):
+        x, y = p[:, 0], p[:, 1]
+        return 0.5 * abs(float(np.dot(x, np.roll(y, -1)) - np.dot(y, np.roll(x, -1))))
+
+    def orient(p):
+        return p if _cross(p[1] - p[0], p[2] - p[1]) >= 0 else p[::-1]
+
+    a, b = orient(np.asarray(a, np.float64)), orient(np.asarray(b, np.float64))
+    poly = list(a)
+    for i in range(4):
+        c, d = b[i], b[(i + 1) % 4]
+        inside = lambda q: _cross(d - c, q - c) >= 0  # noqa: E731
+        pts, poly = poly, []
+        for j in range(len(pts)):
+            p, q = pts[j], pts[(j + 1) % len(pts)]
+            if inside(q):
+                if not inside(p):
+                    poly.append(_intersect(p, q, c, d))
+                poly.append(q)
+            elif inside(p):
+                poly.append(_intersect(p, q, c, d))
+        if not poly:
+            return 0.0
+    inter = area(np.asarray(poly)) if len(poly) >= 3 else 0.0
+    union = area(a) + area(b) - inter
+    return inter / union if union > 0 else 1.0
+
+
+def _cross(a, b) -> float:
+    """z of the cross product of two 2D vectors."""
+    return float(a[0] * b[1] - a[1] * b[0])
+
+
+def _intersect(p, q, c, d):
+    r, s = q - p, d - c
+    t = _cross(c - p, s) / _cross(r, s)
+    return p + t * r
+
+
+def word_maps(rng: np.random.Generator, h: int, w: int, n_words: int = 24) -> tuple:
+    """CRAFT-like (region, affinity) maps: gaussian characters along words
+    and link bridges between them (``tests/test_detection.py``'s
+    ``synthetic_maps``)."""
+    region, link = np.zeros((h, w), np.float32), np.zeros((h, w), np.float32)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    for _ in range(n_words):
+        cy, cx = rng.uniform(15, h - 15), rng.uniform(20, w - 20)
+        n = int(rng.integers(2, 5))
+        sx, sy = rng.uniform(3, 5), rng.uniform(3, 5)
+        for i in range(n):
+            ccx = cx + (i - (n - 1) / 2) * sx * 2.2
+            region = np.maximum(region, np.exp(-((xx - ccx) ** 2 / (2 * sx ** 2)
+                                                 + (yy - cy) ** 2 / (2 * sy ** 2))))
+            if i:
+                lcx = ccx - sx * 1.1
+                link = np.maximum(link, np.exp(-((xx - lcx) ** 2 / (2 * (sx * 0.7) ** 2)
+                                                 + (yy - cy) ** 2 / (2 * (sy * 0.7) ** 2))))
+    return region, link
+
+
+def native_boxes(region: np.ndarray, link: np.ndarray, thresholds: tuple) -> tuple:
+    """(host boxes, the card's boxes, host ms) of one map pair."""
+    from lightly_ocr_tpu_torch import native_postproc
+    from lightly_ocr_tpu_torch.ops.cc import label_components
+    from lightly_ocr_tpu_torch.ops.detection import get_det_boxes
+
+    text, lk, low = thresholds
+    t0 = time.perf_counter()
+    host = native_postproc.det_boxes(region, link, text, lk, low, max_boxes=4096)
+    ms = 1e3 * (time.perf_counter() - t0)
+    t, lm = torch.from_numpy(region)[None].cuda(), torch.from_numpy(link)[None].cuda()
+    labels = label_components(((t > low) | (lm > lk)).contiguous())
+    boxes, valid = get_det_boxes(t, lm, labels, text_threshold=text, link_threshold=lk, low_text=low,
+                                 max_boxes=4096)
+    return host, boxes[0][valid[0]].cpu().numpy(), ms
+
+
+def matched_ious(host: np.ndarray, dev: np.ndarray) -> list:
+    """Each host box's IoU with its best unmatched card box."""
+    left, out = list(range(len(dev))), []
+    for hb in host:
+        best = max(left, key=lambda i: quad_iou(hb, dev[i]), default=None)
+        out.append(quad_iou(hb, dev[best]) if best is not None else 0.0)
+        if best is not None:
+            left.remove(best)
+    return out
+
+
+def native_phase(maps: torch.Tensor, smi: str) -> None:
+    """Build ``csrc/postproc.cc`` with ``g++`` and hold its ``det_boxes`` to
+    the card's ``get_det_boxes`` (CC kernel + box extraction): on gaussian
+    word maps every box (as ``tests/test_native.py``), and on phase 2's
+    score maps (a random-weight detector's blobs, thresholds from their
+    quantiles) the counts and nearly every box; the card's box extraction
+    is the JAX package's approximation (a 128-angle sweep for the
+    minimum-area rectangle, dilation in support space), the host's
+    OpenCV's exact one."""
+    from lightly_ocr_tpu_torch import native_postproc
+    from lightly_ocr_tpu_torch.ops import native
+
+    build_s = native.build(["postproc"])
+    native_postproc.load_library()
+    rng = np.random.default_rng(SEED)
+    runs = {"word maps": [(*word_maps(rng, 480, 320), (0.7, 0.4, 0.4)) for _ in range(NATIVE_IMAGES)]}
+    region, link = maps[:NATIVE_IMAGES, :, 0], maps[:NATIVE_IMAGES, :, 1]
+    q = (torch.quantile(region.flatten()[::97], 0.95).item(), torch.quantile(link.flatten()[::97], 0.97).item(),
+         torch.quantile(region.flatten()[::97], 0.80).item())
+    runs["phase 2 maps"] = [(region[b].numpy(), link[b].numpy(), q) for b in range(NATIVE_IMAGES)]
+    stats = {}
+    for name, cases in runs.items():
+        ious, counts, host_ms = [], [], 0.0
+        for r, lk, th in cases:
+            host, dev, ms = native_boxes(r, lk, th)
+            counts.append((len(host), len(dev)))
+            ious += matched_ious(host, dev)
+            host_ms += ms
+        ious = np.asarray(ious)
+        stats[name] = (counts, ious)
+        log(f"native {name}: boxes (host, card) per map {counts}; IoU min {ious.min():.4f} mean "
+            f"{ious.mean():.4f}, share >= {NATIVE_IOU}: {np.mean(ious >= NATIVE_IOU):.4f}; host det_boxes "
+            f"{host_ms / len(cases):.2f} ms a 480x320 map on the card's host ({smi})")
+    log(f"native: g++ build {build_s:.2f} s")
+    for name, (counts, ious) in stats.items():
+        assert ious.size and all(h == d for h, d in counts), f"native {name}: box counts differ"
+    assert stats["word maps"][1].min() >= NATIVE_IOU, "native: a box differs on the word maps"
+    ious = stats["phase 2 maps"][1]
+    assert np.mean(ious >= NATIVE_IOU) >= NATIVE_SHARE and ious.mean() >= NATIVE_MEAN, \
+        "native: the boxes differ on the detector's maps"
+
+
+def profile_phase(cfg, det_sd, rec_sd, imgs, smi: str) -> None:
+    """``utils.profiling.trace`` around two b16 dispatches of the default
+    plan: the Chrome trace must hold the card's kernels (CUPTI) and name
+    the hand kernels."""
+    from lightly_ocr_tpu_torch.serving.batch import BatchedOCR
+    from lightly_ocr_tpu_torch.utils.profiling import TRACE_FILE, annotate, trace
+
+    ocr = BatchedOCR(cfg, det_sd, rec_sd, boxes_per_image=BOXES, device="cuda")
+    (cb, gb), _ = next(iter(ocr.group(imgs).items()))
+    args = ocr.prepare(imgs, cb, gb)
+    ocr(*args)
+    torch.cuda.synchronize()
+    work = tempfile.mkdtemp(prefix="lightly_ocr_trace_")
+    try:
+        reset_launch_counts()
+        with trace(work):  # two dispatches: CUPTI may start after the first kernels of the first
+            for i in range(2):
+                with annotate(f"dispatch {i}"):
+                    ocr.decode(ocr(*args))
+        launches = launch_counts()
+        with open(os.path.join(work, TRACE_FILE)) as f:
+            events = json.load(f)["traceEvents"]
+        size = os.path.getsize(os.path.join(work, TRACE_FILE))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    spans = {e.get("name") for e in events if e.get("cat") == "user_annotation"}
+    names = " ".join(e.get("name", "") for e in kernels)
+    busy = sum(e.get("dur", 0) for e in kernels) / 1e3
+    found = {"seam_tail": "seam_tail" in spans and "tail_chain" in names,
+             "cc_strip": "cc_strip" in names,
+             "conv12_pool": "conv12_pool" in spans and "conv3x3_hopper" in names}
+    top = {}
+    for e in kernels:
+        top[e["name"][:60]] = top.get(e["name"][:60], 0) + e.get("dur", 0)
+    log(f"profile: two b16 dispatches, launches {launches}; {len(events)} events ({size} bytes), "
+        f"{len(kernels)} kernels on the card, {busy:.2f} ms of kernel time; hand kernels named {found}; "
+        f"spans {sorted(n for n in spans if n)[:12]}; top kernels (us) "
+        + json.dumps(dict(sorted(top.items(), key=lambda kv: -kv[1])[:5])))
+    assert kernels, "profile: the trace holds no kernel of the card (CUPTI)"
+    assert all(found.values()), f"profile: the trace does not name every hand kernel: {found}"
+
+
+def rowpack_phase(cfg, det_sd, rec_sd, imgs) -> dict:
+    """One dispatch of the bf16 ``fused_impl="rowpack"`` plan against the
+    default plan, as phase plans gates its plans."""
+    from lightly_ocr_tpu_torch.serving.batch import BatchedOCR
+
+    def dispatch(c):
+        ocr = BatchedOCR(c, det_sd, rec_sd, boxes_per_image=BOXES, device="cuda")
+        (cb, gb), _ = next(iter(ocr.group(imgs).items()))
+        args = ocr.prepare(imgs, cb, gb)
+        with torch.inference_mode():
+            ocr(*args)
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            tm, lm = ocr.detector_scores(args[0])
+            res = ocr.postprocess(tm, lm, *args[1:])
+            torch.cuda.synchronize()
+        return torch.stack([tm, lm]), res, launch_counts()
+
+    ref_s, ref, _ = dispatch(cfg)
+    sc, res, launches = dispatch(cfg.replace(fused_impl="rowpack"))
+    rel = ((sc - ref_s).abs().max() / ref_s.abs().max()).item()
+    va, vb = ref["valid"], res["valid"]
+    same = va & vb & ((ref["rects"] - res["rects"]).abs().amax(-1) <= 1.0)
+    share = same.sum().item() / max(1, (va | vb).sum().item())
+    log(f"plan bf16 rowpack: launches {launches}; vs bf16 tail,s2d: score maxdiff {rel:.4f} of max |score|, "
+        f"matching boxes {share:.4f} ({int(va.sum())} vs {int(vb.sum())} valid)")
+    assert launches["cc"] > 0 and launches["seam_tail"] == 0 and launches["conv12_pool"] == 0, launches
+    assert torch.isfinite(sc).all() and rel <= ROWPACK_TOL, "rowpack plan: scores too far from the default plan"
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing run",
@@ -1876,6 +2469,7 @@ def main() -> int:
     B, H2, W2, _ = t.shape
     assert got.shape == (B, H2, 2, W2) and torch.isfinite(got).all(), "tail output"
     tail_err, fg_got = tail_gates("seam tail", got, ref)
+    maps2 = got.cpu()  # phase native's score maps
     with torch.inference_mode():
         tail_ms = cuda_ms(lambda: seam_tail.seam_tail(ya, t, p), iters=10)
         tail_plain_ms = cuda_ms(lambda: seam_tail.seam_tail_plain(ya, t, p), iters=3)
@@ -1957,6 +2551,9 @@ def main() -> int:
     plan_launches = plan_dispatches(e2e_cfg, det_sd, rec_sd, args)
     del args
     log(f"phase plans: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    rowpack_phase(e2e_cfg, det_sd, rec_sd, imgs)
+    log(f"phase rowpack: {time.perf_counter() - t0:.2f} s")
 
     # -- phase 6: end to end through the server: bf16 default, bf16 stem, int8 cpool2
     t0 = time.perf_counter()
@@ -2056,6 +2653,21 @@ def main() -> int:
     t0 = time.perf_counter()
     craft_phase(smi)
     log(f"phase craft: {time.perf_counter() - t0:.2f} s")
+
+    # -- phases 15-18: data parallelism, export, the host library, the profiler
+    t0 = time.perf_counter()
+    parallel_serving(e2e_cfg, det_sd, rec_sd, imgs, smi)
+    parallel_training(smi)
+    log(f"phase parallel: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    export_phase(smi)
+    log(f"phase export: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    native_phase(maps2, smi)
+    log(f"phase native: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    profile_phase(e2e_cfg, det_sd, rec_sd, imgs, smi)
+    log(f"phase profile: {time.perf_counter() - t0:.2f} s")
 
     # launches: each kernel's count over the timed run of the path that
     # drives it (the bf16 default plan for the seam tail, CC and #5, the bf16

@@ -1,11 +1,17 @@
 """Typed configuration of the PyTorch port (a copy of the JAX package's).
 
 The same frozen dataclass, field for field, as ``lightly_ocr_tpu/config.py``
-so one YAML file configures either package.  ``fused_stages`` picks the
-serving plan of ``serving/batch.py::BatchedOCR``, as in the JAX package.
-The other fields that steer the TPU serving plan (``fused_impl``,
-``monolith``, ``cpool_pool``, ``mesh_*``) are kept for file compatibility
-and are not read by the port.
+so one YAML file configures either package.  As in the JAX package,
+``fused_stages`` and ``fused_impl`` pick the serving plan of
+``serving/batch.py::BatchedOCR`` (overridden by ``LIGHTLY_OCR_ENABLE_FUSED``
+and ``LIGHTLY_OCR_FUSED_IMPL``); ``mesh_data`` (-1 = every visible device)
+is the CRNN trainer's number of data-parallel processes, and ``mesh_model``
+above 1 (tensor parallelism) is refused.  ``monolith`` and ``cpool_pool``
+choose among compiled XLA programs in the JAX package; the port runs one
+eager program that computes every form, so they are validated and have no
+effect.  ``compute_dtype``, ``param_dtype``, ``num_gpu`` and ``onnx_path``
+are kept for file compatibility: the port takes the serving dtype as an
+argument.
 ``yaml`` is imported inside :func:`load_config` only, so the package
 imports without it; without it, a config file is read as JSON.
 """

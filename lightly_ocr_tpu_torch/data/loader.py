@@ -193,7 +193,10 @@ class ShuffleSampler:
 class DataLoader:
     """Thread-prefetched batches of (images, labels): ``workers`` threads
     decode and resize (numpy and zlib release the interpreter lock for most
-    of it); batches come out in sampler order."""
+    of it); batches come out in sampler order.  ``rows`` (a slice of each
+    batch of ``batch_size``) decodes only those rows of every batch the
+    sampler draws: one process of a data-parallel run takes its share of
+    the global batch without decoding the others'."""
 
     def __init__(
         self,
@@ -207,8 +210,10 @@ class DataLoader:
         seed: int = 0,
         prefetch: int = 4,
         workers: int = 2,
+        rows: slice | None = None,
     ):
         self.dataset = dataset
+        self.rows = slice(None) if rows is None else rows
         self.batch_size = batch_size
         self.height, self.width = height, width
         self.keep_ratio = keep_ratio
@@ -223,7 +228,7 @@ class DataLoader:
         return len(self.dataset) // self.batch_size
 
     def _load_batch(self, idx: np.ndarray):
-        samples = [self.dataset[int(i)] for i in idx]
+        samples = [self.dataset[int(i)] for i in idx[self.rows]]
         return align_collate(samples, self.height, self.width, self.keep_ratio)
 
     def __iter__(self):

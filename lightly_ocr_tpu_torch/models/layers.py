@@ -13,6 +13,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from lightly_ocr_tpu_torch.parallel.collectives import all_sum_autograd, is_split
+
 
 class BatchNorm2d(nn.Module):
     """BatchNorm (eps 1e-5) with the torch parameter names and flax's
@@ -34,6 +36,7 @@ class BatchNorm2d(nn.Module):
     and rounds once to the input's dtype."""
 
     momentum = 0.1  # the share of the batch statistics (flax: 1 - 0.9)
+    group = None  # the processes whose rows make the batch (sync_batch_norm)
 
     def __init__(self, num_features: int, eps: float = 1e-5):
         super().__init__()
@@ -51,17 +54,52 @@ class BatchNorm2d(nn.Module):
                 training=False, eps=self.eps,
             )
         dt = torch.promote_types(x.dtype, torch.float32)  # at least float32, as flax
-        y, mean, invstd = torch.native_batch_norm(
-            x.to(dt), self.weight.to(dt), self.bias.to(dt), None, None, True,
-            self.momentum, self.eps)
+        if is_split(self.group):
+            y, mean, var = self._global_batch_norm(x.to(dt))
+        else:
+            y, mean, invstd = torch.native_batch_norm(
+                x.to(dt), self.weight.to(dt), self.bias.to(dt), None, None, True,
+                self.momentum, self.eps)
+            var = None
         if not self.frozen_stats:
             with torch.no_grad():
-                var = (invstd.pow(-2) - self.eps).clamp_min_(0.0)  # biased
+                if var is None:
+                    var = (invstd.pow(-2) - self.eps).clamp_min_(0.0)  # biased
                 self.running_mean.mul_(1.0 - self.momentum).add_(
                     mean.to(self.running_mean.dtype), alpha=self.momentum)
                 self.running_var.mul_(1.0 - self.momentum).add_(
                     var.to(self.running_var.dtype), alpha=self.momentum)
         return y.to(x.dtype)
+
+    def _global_batch_norm(self, x: torch.Tensor):
+        """(y, mean, biased var) over the batch of every process in
+        ``group``: the per-channel sums of ``x`` and ``x^2`` and the count
+        summed across the processes (differentiably), then flax's formula,
+        ``mean = E[x]``, ``var = max(E[x^2] - mean^2, 0)``,
+        ``y = (x - mean) * (rsqrt(var + eps) * weight) + bias``."""
+        C = x.shape[1]
+        local = torch.cat([x.sum((0, 2, 3)), (x * x).sum((0, 2, 3)),
+                           x.new_full((1,), x.numel() // C)])
+        total = all_sum_autograd(local, self.group)
+        n = total[2 * C].detach()
+        mean = total[:C] / n
+        var = (total[C:2 * C] / n - mean * mean).clamp_min(0.0)
+        mul = torch.rsqrt(var + self.eps) * self.weight.to(x.dtype)
+        y = (x - mean[:, None, None]) * mul[:, None, None] + self.bias.to(x.dtype)[:, None, None]
+        return y, mean, var
+
+
+def sync_batch_norm(module: nn.Module, group) -> nn.Module:
+    """Make every :class:`BatchNorm2d` of ``module`` normalise in training
+    mode over the batch of all processes of ``group`` (a
+    ``torch.distributed`` process group; ``None`` = this process's batch).
+    With more than one process the statistics are flax's over the global
+    batch (:meth:`BatchNorm2d._global_batch_norm`); with one, the module is
+    unchanged."""
+    for m in module.modules():
+        if isinstance(m, BatchNorm2d):
+            m.group = group
+    return module
 
 
 @contextlib.contextmanager

@@ -245,7 +245,7 @@ class VGG_UNet(nn.Module):
         y = self.basenet.slice1(self._nchw(x).to(p.dtype), _SLICE1_PREFIX)
         return self._nhwc(y)
 
-    def trunk(self, x: torch.Tensor, resume: str | None = None):
+    def trunk(self, x: torch.Tensor, resume: str | None = None, seam: bool = True):
         """[B, H, W, 3] canvas -> the seam pair ``(upconv3 out [B, H/4, W/4,
         64], slice1 [B, H/2, W/2, 128])`` NHWC, the input of
         :func:`lightly_ocr_tpu_torch.ops.seam_tail.seam_tail` (the JAX
@@ -256,10 +256,22 @@ class VGG_UNet(nn.Module):
         ``resume="pool"`` takes the conv1_2 + pool activation
         ``[B, H/2, W/2, 64]`` and resumes at conv2_1 (``from_pool=True``);
         ``resume="c21"`` takes the conv2_1 activation ``[B, H/2, W/2, 128]``
-        and resumes at conv2_2 (``from_c21=True``)."""
+        and resumes at conv2_2 (``from_c21=True``).
+
+        ``seam=False`` is the JAX package's concat trunk
+        (``VGG_UNetTrunk(seam=False)``): every decoder block on its concat,
+        and the upsampled upconv3 output concatenated with slice1, ``[B,
+        H/2, W/2, 192]`` NHWC, the input of the row-packed tail."""
         p = next(self.parameters())
         ops = None if resume is None else _SLICE1_RESUME[resume]
         s = self.basenet(self._nchw(x).to(p.dtype), ops)
+        if not seam:
+            y = self.upconv1(torch.cat([s["fc7"], s["slice4"]], 1))
+            for up, skip in ((self.upconv2, "slice3"), (self.upconv3, "slice2")):
+                t = s[skip]
+                y = up(torch.cat([_upsample_to(y, t.shape[2], t.shape[3]), t], 1))
+            t = s["slice1"]
+            return self._nhwc(torch.cat([_upsample_to(y, t.shape[2], t.shape[3]), t], 1))
         y = self.upconv1.forward_seam(s["fc7"], s["slice4"])
         y = self.upconv2.forward_seam(y, s["slice3"])
         y = self.upconv3.forward_seam(y, s["slice2"])

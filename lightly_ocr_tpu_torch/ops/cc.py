@@ -140,7 +140,7 @@ def label_components(fg: torch.Tensor) -> torch.Tensor:
     err = lib.cc_launch(native.ptr(fg), native.ptr(labels), B, H, W,
                         native.stream(fg.device))
     native.check(err, "label_components")
-    label_components.launches += 1
+    native.count_launch(label_components)
     return labels
 
 

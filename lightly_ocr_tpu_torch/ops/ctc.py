@@ -60,14 +60,17 @@ def ctc_loss(log_probs: torch.Tensor, labels: torch.Tensor, input_lengths: torch
 
 
 def cross_entropy_ignore_index(logits: torch.Tensor, targets: torch.Tensor,
-                               ignore_index: int = 0) -> torch.Tensor:
+                               ignore_index: int = 0, count=None) -> torch.Tensor:
     """``torch.nn.CrossEntropyLoss(ignore_index=...)`` of the attention head
     (reference ``crnn.py:116``): the mean NLL over the targets not ignored,
     divided by ``max(count, 1)`` so that a batch whose every target is
-    ignored gives 0, not NaN.  ``logits`` [..., C], ``targets`` [...]."""
+    ignored gives 0, not NaN.  ``logits`` [..., C], ``targets`` [...].
+    ``count`` maps the local count of targets not ignored to the one to
+    divide by (the whole batch's, where these rows are one shard of it)."""
     nll = -F.log_softmax(logits, dim=-1).gather(-1, targets[..., None].long())[..., 0]
     mask = (targets != ignore_index).to(nll.dtype)
-    return (nll * mask).sum() / mask.sum().clamp_min(1.0)
+    n = mask.sum() if count is None else count(mask.sum())
+    return (nll * mask).sum() / n.clamp_min(1.0)
 
 
 def ctc_greedy_decode(logits: torch.Tensor, blank: int = 0):

@@ -191,11 +191,12 @@ def seam_tail(ya: torch.Tensor, t: torch.Tensor, p: TailParams) -> torch.Tensor:
     out = torch.empty((B, H2, 2, W2), dtype=torch.float32, device=t.device)
     args = [t, ya, p.k1b, p.b1, p.wa, p.ba, p.w0, p.b0, p.w2, p.b2,
             p.w4, p.b4, p.w6, p.b6, p.w8, p.b8, out]
-    err = lib.seam_tail_launch(
-        *[native.ptr(a) for a in args], B, H2, W2, native.stream(t.device)
-    )
+    with torch.profiler.record_function("seam_tail"):  # the span a trace names it by
+        err = lib.seam_tail_launch(
+            *[native.ptr(a) for a in args], B, H2, W2, native.stream(t.device)
+        )
     native.check(err, "seam_tail")
-    seam_tail.launches += 1
+    native.count_launch(seam_tail)
     return out
 
 
@@ -218,7 +219,7 @@ def tail_scores(x: torch.Tensor, p: TailParams) -> torch.Tensor:
     args = [x, *(getattr(p, f) for f in _CHAIN), out]
     err = lib.tail_launch(*[native.ptr(a) for a in args], B, H2, W2, native.stream(x.device))
     native.check(err, "tail_scores")
-    tail_scores.launches += 1
+    native.count_launch(tail_scores)
     return out
 
 

@@ -312,8 +312,9 @@ def _pooled(x0: torch.Tensor, p: StemParams) -> torch.Tensor:
     (``conv12_pool_bf16``)."""
     B, H, W, _ = x0.shape
     out = torch.empty((B, H // 2, W // 2, 64), dtype=torch.bfloat16, device=x0.device)
-    native.check(_lib().conv12_pool_bf16(*map(native.ptr, (x0, p.w1, p.b1, out)), B, H, W,
-                                         native.stream(x0.device)), "conv12_pool_bf16")
+    with torch.profiler.record_function("conv12_pool"):  # the span a trace names it by
+        native.check(_lib().conv12_pool_bf16(*map(native.ptr, (x0, p.w1, p.b1, out)), B, H, W,
+                                             native.stream(x0.device)), "conv12_pool_bf16")
     return out
 
 
@@ -327,7 +328,7 @@ def fused_stem_conv(x0: torch.Tensor, p: StemParams) -> torch.Tensor:
     out = torch.empty((B, H, W, 64), dtype=torch.bfloat16, device=x0.device)
     native.check(_lib().conv12_bf16(*map(native.ptr, (x0, p.w1, p.b1, out)), B, H, W,
                                     native.stream(x0.device)), "conv12_bf16")
-    fused_stem_conv.launches += 1
+    native.count_launch(fused_stem_conv)
     return out
 
 
@@ -338,7 +339,7 @@ def fused_conv12_pool(x0: torch.Tensor, p: StemParams) -> torch.Tensor:
         return conv12_pool_plain(x0, p)
     _check("fused_conv12_pool", x0, p, ("w1", "b1"))
     out = _pooled(x0, p)
-    fused_conv12_pool.launches += 1
+    native.count_launch(fused_conv12_pool)
     return out
 
 
@@ -354,7 +355,7 @@ def fused_conv12_pool_conv21(x0: torch.Tensor, p: StemParams) -> torch.Tensor:
     out = torch.empty((B, H // 2, W // 2, 128), dtype=torch.bfloat16, device=x0.device)
     native.check(_lib().conv21_bf16(*map(native.ptr, (pooled, p.w2, p.b2, out)), B, H // 2,
                                     W // 2, native.stream(x0.device)), "conv21_bf16")
-    fused_conv12_pool_conv21.launches += 1
+    native.count_launch(fused_conv12_pool_conv21)
     return out
 
 
@@ -397,7 +398,7 @@ def fused_conv12_pool_conv21_q(x0: torch.Tensor, p: StemParams) -> torch.Tensor:
     out, steps = int8_launches(x0, p)
     for _, launch in steps:
         launch()
-    fused_conv12_pool_conv21_q.launches += 1
+    native.count_launch(fused_conv12_pool_conv21_q)
     return out
 
 

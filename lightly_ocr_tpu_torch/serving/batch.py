@@ -1,4 +1,5 @@
-"""Whole-batch OCR on one device (port of ``serving/batch.py::BatchedOCR``).
+"""Whole-batch OCR on one device, or on each replica of a mesh (port of
+``serving/batch.py::BatchedOCR``).
 
 ``[B, H, W, 3]`` same-bucket canvases -> the CRAFT trunk (seam form) -> the
 seam-tail kernel (region and affinity maps) -> the connected-components
@@ -11,7 +12,10 @@ CTC beam labels, or attention EOS stops).  Only
 the last step runs on the host.
 
 The detector runs the plan the JAX package serves on its accelerator
-(``_fused_kernel_plan``), read from ``Config.fused_stages`` and
+(``_fused_kernel_plan``), read from ``Config.fused_stages`` (which
+``LIGHTLY_OCR_ENABLE_FUSED`` overrides: ``none`` turns every stage off,
+else a comma list; a stage asked for there that cannot run is warned of),
+``Config.fused_impl`` (``LIGHTLY_OCR_FUSED_IMPL``) and
 ``Config.quant_int8``:
 
 * ``tail``: trunk with the seam-split decoder, then the fused tail kernel;
@@ -36,14 +40,33 @@ The detector runs the plan the JAX package serves on its accelerator
   the JAX package's ``s2d_conv12_pool`` is XLA there too.  In float32 the
   fold changes nothing but round-off, and the plain slice1 runs.
 
+``fused_impl="rowpack"`` replaces the hand kernels of the ``stem`` plan
+(#4) and of the tail (#1) by the row-packed stock convs of
+:mod:`..ops.rowpack`, the tail on the trunk's concat (``trunk(seam=False)``);
+``cpool``, ``cpool2`` and ``s2d``, which ride the seam kernel, are off under
+it.  ``stage_fns`` is the dispatch's two stage functions (detector scores |
+the rest), for per-stage timing; ``Config.monolith`` and
+``Config.cpool_pool`` choose among XLA programs in the JAX package and have
+no effect here (one eager program computes every form).
+
 The canvas geometry picks among these per dispatch, as in the JAX package;
 once a kernel is picked, a CUDA tensor launches it or the call raises.
+
+``mesh`` (:func:`lightly_ocr_tpu_torch.parallel.make_mesh`, a data axis
+only) keeps one replica of both networks on each data-axis device and
+splits every batch into contiguous chunks, one a replica, each run to the
+end of the program on its own device, CUDA stream and thread (one pool of
+threads for the object's life); the outputs come back on the first device
+in batch order (the JAX package's ``shard_map`` over the
+data axis, the reference's ``nn.DataParallel``).
 
 ``quant_int8`` builds both networks with w8a8 ``QuantConv`` layers.
 """
 from __future__ import annotations
 
 import logging
+import os
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -63,6 +86,7 @@ from lightly_ocr_tpu_torch.ops.image import (
     pick_gray_bucket,
     plan_aspect_resize,
 )
+from lightly_ocr_tpu_torch.ops.rowpack import stem_conv_rowpacked, tail_scores_rowpacked
 from lightly_ocr_tpu_torch.ops.seam_tail import fused_tail_scores_cs_seam, tail_params
 from lightly_ocr_tpu_torch.ops.stem import (
     conv12_pool_plain,
@@ -76,10 +100,50 @@ from lightly_ocr_tpu_torch.ops.stem import (
     stem_params,
     stem_supported,
 )
+from lightly_ocr_tpu_torch.parallel.mesh import MODEL_AXIS, refuse_model_axis, shard_batch
 from lightly_ocr_tpu_torch.text.converters import build_converter
 
 _LUMA = np.asarray(LUMA, np.float32)
 log = logging.getLogger(__name__)
+
+_OFF = ("", "none", "off", "0")
+
+
+def enabled_stages(cfg: Config) -> tuple[frozenset, bool]:
+    """(the fused stages to run, whether they were asked for explicitly):
+    ``LIGHTLY_OCR_ENABLE_FUSED`` overrides ``Config.fused_stages`` (``none``
+    / ``off`` / ``0`` / empty turn every stage off, else a comma list), as
+    in the JAX package's ``_fused_kernel_plan``."""
+    env = os.environ.get("LIGHTLY_OCR_ENABLE_FUSED")
+    if env is None:
+        return cfg.derived_fused_stages, False
+    if env.strip().lower() in _OFF:
+        return frozenset(), True
+    return frozenset(t.strip() for t in env.split(",")), True
+
+
+def fused_impl(cfg: Config) -> str:
+    """``pallas`` (the hand kernels) or ``rowpack`` (:mod:`..ops.rowpack`):
+    ``LIGHTLY_OCR_FUSED_IMPL`` overrides ``Config.fused_impl``."""
+    return os.environ.get("LIGHTLY_OCR_FUSED_IMPL", "").strip() or cfg.fused_impl
+
+
+def warn_unhonoured(stages: frozenset, use_tail: bool, front, s2d: bool) -> None:
+    """Warn, as the JAX package does, of each stage asked for explicitly
+    (``LIGHTLY_OCR_ENABLE_FUSED``) that the plan cannot run."""
+    if "stem" in stages and not use_tail:
+        log.warning("fused stem requested but not active (requires the fused tail "
+                    "enabled, a supported canvas height, and quant_int8 off) — "
+                    "running without it")
+    cpool_fronts = (fused_conv12_pool, fused_conv12_pool_conv21, fused_conv12_pool_conv21_q)
+    if {"cpool", "cpool2"} & stages and front not in cpool_fronts:
+        log.warning("fused conv1_2+pool requested but not active (requires the fused "
+                    "tail with the seam kernel — not rowpack —, an even-split canvas, "
+                    "and no 'stem' in the enable set) — running without it")
+    if "s2d" in stages and not s2d:
+        log.warning("s2d stem requested but not active (requires the seam tail "
+                    "kernel — not rowpack —, bfloat16, an even canvas, and no "
+                    "stem/cpool stage in the enable set) — running without it")
 
 
 def resolve_device(device) -> torch.device:
@@ -104,12 +168,18 @@ class BatchedOCR:
 
     def __init__(self, cfg: Config, det_state: dict, rec_state: dict,
                  boxes_per_image: int = 32, dtype: torch.dtype = torch.bfloat16,
-                 device="cuda"):
+                 device="cuda", mesh=None):
         self.cfg = cfg
+        self.mesh = mesh
+        if mesh is not None:
+            refuse_model_axis(mesh.shape[MODEL_AXIS])
+            device = mesh.data_devices[0]
         self.device = resolve_device(device)
         self.dtype = dtype
         self.boxes_per_image = boxes_per_image
-        stages = cfg.derived_fused_stages
+        stages, explicit = enabled_stages(cfg)
+        self.impl = fused_impl(cfg)
+        stem_conv, _, self.seam = self.fused_impls()
         self.use_tail = "tail" in stages
         if self.use_tail and "stem" in stages and cfg.quant_int8:
             log.warning("fused stem requested but not active (quant_int8 is on) "
@@ -121,18 +191,26 @@ class BatchedOCR:
         self.front_supported = conv_pool_supported
         self.s2d = False
         if self.use_tail and "stem" in stages and not cfg.quant_int8:
-            self.front, self.resume = fused_stem_conv, "stem"
+            self.front, self.resume = stem_conv, "stem"
             self.front_supported = lambda h, w: stem_supported(h)
+        elif self.use_tail and not self.seam:
+            pass  # cpool and s2d ride the seam tail kernel, which rowpack replaces
         elif self.use_tail and "cpool2" in stages:
             self.resume = "c21"
             self.front = (fused_conv12_pool_conv21_q if cfg.quant_int8
                           else fused_conv12_pool_conv21)
         elif self.use_tail and "cpool" in stages:
-            self.front, self.resume = fused_conv12_pool, "pool"
+            self.resume = "pool"
+            self.front = fused_conv12_pool
         elif self.use_tail and "s2d" in stages and dtype == torch.bfloat16:
             self.front, self.resume = fused_conv12_pool, "pool"
             self.prefix = lambda canvases: s2d_prefix(canvases, self.stem)
             self.s2d = True
+        if explicit:
+            warn_unhonoured(stages, self.use_tail, self.front, self.s2d)
+        # the two stage functions, for per-stage timing (the JAX package's
+        # _stage_fns under LIGHTLY_OCR_MONOLITH=0)
+        self.stage_fns = (self.detector_scores, self.postprocess)
         det = VGG_UNet(quant=cfg.quant_int8)
         det.load_state_dict(det_state, strict=True)
         # fold the kernels' BNs from the float32 master weights, then cast
@@ -148,6 +226,18 @@ class BatchedOCR:
         self.lm = load_lm_prior(cfg, self.device)  # None without ctc_lm_path
         self.converter = build_converter(cfg.prediction, cfg.character)
         self._chartab = np.asarray(self.converter.character, dtype="<U1")
+        # one replica of both networks on each further data-axis device,
+        # each with a stream of its own (two replicas may share a card) and
+        # a thread of one pool
+        self.stream, self.pool = None, None
+        self.replicas = [self] if mesh is None else [self] + [
+            BatchedOCR(cfg, det_state, rec_state, boxes_per_image, dtype, device=d)
+            for d in mesh.data_devices[1:]]
+        if mesh is not None:
+            for r in self.replicas:
+                if r.device.type == "cuda":
+                    r.stream = torch.cuda.Stream(r.device)
+            self.pool = ThreadPoolExecutor(len(self.replicas), thread_name_prefix="replica")
 
     def detector_scores(self, canvases: torch.Tensor):
         """[B, H, W, 3] normalized canvases -> (region, affinity) f32
@@ -158,11 +248,34 @@ class BatchedOCR:
         front = self.front_for(*canvases.shape[1:3])
         if front is not None:
             x0 = self.prefix(canvases)
-            y_lo, t = self.det_net.trunk(front(x0, self.stem), resume=self.resume)
+            trunk = self.det_net.trunk(front(x0, self.stem), resume=self.resume, seam=self.seam)
         else:
-            y_lo, t = self.det_net.trunk(canvases)
-        y = fused_tail_scores_cs_seam(self.tail, y_lo, t)  # [B, H2, 2, W2]
+            trunk = self.det_net.trunk(canvases, seam=self.seam)
+        if not self.seam:
+            y = tail_scores_rowpacked(trunk, self.tail)  # [B, H2, W2, 2]
+            return y[..., 0], y[..., 1]
+        y = fused_tail_scores_cs_seam(self.tail, *trunk)  # [B, H2, 2, W2]
         return y[:, :, 0], y[:, :, 1]
+
+    def fused_impls(self):
+        """(stem conv, tail, whether the tail is the channels-second seam
+        kernel) of ``fused_impl``: the hand kernels (#4, #1), or the
+        row-packed stock convs of :mod:`..ops.rowpack` (the JAX package's
+        ``_fused_impls``)."""
+        if self.impl == "rowpack":
+            return stem_conv_rowpacked, tail_scores_rowpacked, False
+        return fused_stem_conv, fused_tail_scores_cs_seam, True
+
+    def fused_kernel_plan(self, h: int, w: int) -> tuple:
+        """(use_stem, use_tail, use_cpool, use_s2d) on an ``h x w`` canvas,
+        as the JAX package's ``_fused_kernel_plan`` resolves them on its
+        accelerator: ``use_cpool`` is False, ``"pool"`` or ``"c21"``."""
+        front = self.front_for(h, w)
+        use_cpool = {fused_conv12_pool: "pool", fused_conv12_pool_conv21: "c21",
+                     fused_conv12_pool_conv21_q: "c21"}
+        return (front in (fused_stem_conv, stem_conv_rowpacked), self.use_tail,
+                False if self.s2d else use_cpool.get(front, False),
+                self.s2d and front is not None)
 
     def front_for(self, h: int, w: int):
         """The conv1_2 front that the plan runs on an ``h x w`` canvas: its
@@ -228,12 +341,45 @@ class BatchedOCR:
         idx, conf = self.recognize(gray, rects)
         return {"rects": rects, "valid": valid, "pred_idx": idx, "confidence": conf}
 
-    @torch.inference_mode()
     def __call__(self, canvases, gray, inv_ratio, extents) -> dict:
         """canvases [B, H, W, 3] normalized; gray [B, H0, W0] ORIGINAL-
         resolution luma in [0, 255]; inv_ratio [B] = 1 / plan.ratio;
         extents [B, 2] true (h0, w0).  Rects come back in original-image
-        coordinates."""
+        coordinates.
+
+        With a mesh, the batch must divide by its data axis: each contiguous
+        chunk runs the whole program on its own replica, one thread per
+        replica (the box extraction's host syncs of one replica then overlap
+        the others' work), each under its device (the kernels launch on the
+        calling thread's current device) and on its own stream (a sync waits
+        for its replica's work alone); the outputs come back on the first
+        device in batch order."""
+        if self.mesh is None:
+            return self.run(canvases, gray, inv_ratio, extents)
+        shards = shard_batch((canvases, gray, inv_ratio, extents), self.mesh)
+        # the streams that made the shards, for each replica to wait on
+        made = [torch.cuda.current_stream(r.device) if r.stream is not None else None
+                for r in self.replicas]
+        futures = [self.pool.submit(r.run_on_device, m, *args)
+                   for r, m, args in zip(self.replicas, made, shards)]
+        outs = [f.result() for f in futures]
+        return {k: torch.cat([o[k].to(self.device) for o in outs]) for k in outs[0]}
+
+    def run_on_device(self, made, canvases, gray, inv_ratio, extents) -> dict:
+        """:meth:`run` with this replica's device and stream made the
+        current ones, after the work of ``made`` (the stream that made the
+        inputs); returns once the outputs are computed."""
+        if self.stream is None:
+            return self.run(canvases, gray, inv_ratio, extents)
+        with torch.cuda.device(self.device), torch.cuda.stream(self.stream):
+            self.stream.wait_stream(made)
+            out = self.run(canvases, gray, inv_ratio, extents)
+            self.stream.synchronize()
+        return out
+
+    @torch.inference_mode()
+    def run(self, canvases, gray, inv_ratio, extents) -> dict:
+        """The program on this device alone (the unsharded call)."""
         tmaps, lmaps = self.detector_scores(canvases)
         return self.postprocess(tmaps, lmaps, gray, inv_ratio, extents)
 
@@ -251,10 +397,13 @@ class BatchedOCR:
 
     def prepare(self, images: list, cb, gb):
         """One group's RGB uint8 images -> the arguments of :meth:`__call__`
-        on the device, padded to a power-of-two batch (pad rows are blank
-        canvases with a 1x1 extent, so they yield no valid box)."""
+        on the device, padded to a power-of-two batch, and to a multiple of
+        the mesh's data axis (pad rows are blank canvases with a 1x1
+        extent, so they yield no valid box)."""
         cfg, dev = self.cfg, self.device
         B = 1 << (len(images) - 1).bit_length()
+        n = len(self.replicas)  # a mesh's data axis must divide the batch
+        B = -(-B // n) * n
         canv = torch.zeros((B, *cb, 3), dtype=torch.float32, device=dev)
         grays = np.zeros((B, *gb), np.float32)
         inv_ratios = np.ones((B,), np.float32)

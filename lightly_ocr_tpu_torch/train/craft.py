@@ -31,8 +31,11 @@ As the JAX package:
   that ``engines.CRAFT(state_dict=...)`` and ``BatchedOCR`` load.
 
 It runs on the card unless asked otherwise (``device="cpu"``); without one
-the default raises.  The JAX package shards the batch over a device mesh
-(``--data-parallel``); that is not ported (ROADMAP Queue 1, parallelism).
+the default raises.  ``--data-parallel`` trains data-parallel over every
+visible device, one process each (:func:`lightly_ocr_tpu_torch.parallel.
+launch.spawn`; NCCL), and under ``torchrun`` over its processes: the JAX
+package's mesh step over the global batch (:func:`make_craft_train_step`
+with ``group``).
 """
 from __future__ import annotations
 
@@ -42,8 +45,17 @@ from typing import Callable, Mapping, Sequence
 import numpy as np
 import torch
 
-from lightly_ocr_tpu_torch.models.layers import init_train_params
+from lightly_ocr_tpu_torch.models.layers import init_train_params, sync_batch_norm
 from lightly_ocr_tpu_torch.models.vgg_unet import _VGG_SLICES, VGG_UNet
+from lightly_ocr_tpu_torch.parallel.collectives import (
+    all_reduce_grads_,
+    global_min_max,
+    global_sum,
+    group_rank,
+    group_size,
+)
+from lightly_ocr_tpu_torch.parallel.launch import backend_for, from_torchrun, spawn
+from lightly_ocr_tpu_torch.parallel.mesh import launched_by_torchrun, visible_devices
 from lightly_ocr_tpu_torch.serving.batch import resolve_device
 from lightly_ocr_tpu_torch.train.train_step import TrainState, clip_by_global_norm_
 
@@ -143,14 +155,16 @@ def synthesize_batch(
 # ---------------------------------------------------------------------------
 
 
-def _kth_largest_threshold(values: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+def _kth_largest_threshold(values: torch.Tensor, k: torch.Tensor, group=None) -> torch.Tensor:
     """Approximate k-th largest of a 1D tensor by 16 value-axis halvings
     (the count of ``values >= mid`` is monotone in ``mid``): the JAX
-    package's threshold, which is not the exact k-th value.  No host sync."""
-    lo, hi = values.min(), values.max()
+    package's threshold, which is not the exact k-th value.  No host sync.
+    With ``group``, ``values`` is this process's part of the global array:
+    the ``min``, the ``max`` and every halving's count are the global ones."""
+    lo, hi = global_min_max(values, group)
     for _ in range(16):
         mid = 0.5 * (lo + hi)
-        above = (values >= mid).sum() > k
+        above = global_sum((values >= mid).sum(), group) > k
         lo, hi = torch.where(above, mid, lo), torch.where(above, hi, mid)
     return lo
 
@@ -160,18 +174,22 @@ def ohem_masks(
     target: torch.Tensor,
     pos_thresh: float = 0.1,
     neg_ratio: float = 3.0,
+    group=None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(squared error, positives, hard negatives) of OHEM: every pixel whose
     target is above ``pos_thresh``, and the negatives whose error reaches
     the approximate ``k``-th largest negative error of the whole flattened
-    batch, ``k = min(int32(neg_ratio * num_pos), N - 1)``."""
+    batch, ``k = min(int32(neg_ratio * num_pos), N - 1)``.  With ``group``
+    the batch is every process's rows: ``num_pos``, ``N`` and the threshold
+    are global."""
     err = (pred - target) ** 2
     pos = target > pos_thresh
-    num_pos = pos.sum().clamp_min(1)
+    num_pos = global_sum(pos.sum(), group).clamp_min(1)
     neg_err = torch.where(pos, 0.0, err).reshape(-1)
     # the JAX package's float32 product, truncated to int32
-    k = (neg_ratio * num_pos.float()).int().clamp_max(neg_err.shape[0] - 1)
-    thresh = _kth_largest_threshold(neg_err, k)
+    n = neg_err.shape[0] * group_size(group)
+    k = (neg_ratio * num_pos.float()).int().clamp_max(n - 1)
+    thresh = _kth_largest_threshold(neg_err, k, group)
     return err, pos, ~pos & (err >= thresh)
 
 
@@ -180,22 +198,28 @@ def ohem_mse(
     target: torch.Tensor,
     pos_thresh: float = 0.1,
     neg_ratio: float = 3.0,
+    group=None,
 ) -> torch.Tensor:
     """Mean squared error over all positives + the hardest negatives
     (:func:`ohem_masks`), the two averaged apart (an all-easy negative
-    field then adds ~0 instead of diluting the positive term)."""
-    err, pos, hard_neg = ohem_masks(pred, target, pos_thresh, neg_ratio)
-    pos_loss = torch.where(pos, err, 0.0).sum() / pos.sum().clamp_min(1)
-    neg_loss = torch.where(hard_neg, err, 0.0).sum() / hard_neg.sum().clamp_min(1)
+    field then adds ~0 instead of diluting the positive term).  With
+    ``group`` it is this process's share of the global loss: its sums over
+    the global counts."""
+    err, pos, hard_neg = ohem_masks(pred, target, pos_thresh, neg_ratio, group)
+    counts = global_sum(torch.stack([pos.sum(), hard_neg.sum()]), group).clamp_min(1)
+    pos_loss = torch.where(pos, err, 0.0).sum() / counts[0]
+    neg_loss = torch.where(hard_neg, err, 0.0).sum() / counts[1]
     return pos_loss + neg_loss
 
 
-def craft_loss(model: VGG_UNet, batch: Mapping[str, torch.Tensor]) -> torch.Tensor:
+def craft_loss(model: VGG_UNet, batch: Mapping[str, torch.Tensor], group=None) -> torch.Tensor:
     """OHEM-MSE of the region map plus that of the affinity map, on the
-    float32 score maps of ``model`` (in whatever mode it is in)."""
+    float32 score maps of ``model`` (in whatever mode it is in); with
+    ``group``, this process's share of the global batch's loss."""
     maps, _ = model(batch["images"])
     maps = maps.to(torch.promote_types(maps.dtype, torch.float32))
-    return ohem_mse(maps[..., 0], batch["region"]) + ohem_mse(maps[..., 1], batch["affinity"])
+    return (ohem_mse(maps[..., 0], batch["region"], group=group)
+            + ohem_mse(maps[..., 1], batch["affinity"], group=group))
 
 
 # ---------------------------------------------------------------------------
@@ -224,12 +248,14 @@ def frozen_mask(model: torch.nn.Module, freeze: Sequence[str] = ()) -> list[bool
 
 @torch.no_grad()
 def apply_craft_update(optimizer: torch.optim.Optimizer, params: Sequence[torch.Tensor],
-                       frozen: Sequence[bool], clip: float = 5.0) -> torch.Tensor:
+                       frozen: Sequence[bool], clip: float = 5.0, group=None) -> torch.Tensor:
     """The JAX package's optimizer chain on the gradients in ``.grad``:
-    frozen gradients zeroed (out of the clip's norm), optax's global-norm
-    clip, then the step.  Returns the global norm of the raw gradients,
-    frozen ones included (the JAX step's ``grad_norm``).  No host sync."""
+    (with ``group``) the gradients summed over the processes, frozen
+    gradients zeroed (out of the clip's norm), optax's global-norm clip,
+    then the step.  Returns the global norm of the raw gradients, frozen
+    ones included (the JAX step's ``grad_norm``).  No host sync."""
     grads = [p.grad for p in params]
+    all_reduce_grads_(grads, group)
     if any(frozen):
         norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
         torch._foreach_zero_([g for g, f in zip(grads, frozen) if f])
@@ -313,20 +339,28 @@ def batch_to(batch: Mapping[str, np.ndarray], device) -> dict[str, torch.Tensor]
 
 
 def make_craft_train_step(
-    model: VGG_UNet, clip: float = 5.0, freeze: Sequence[str] = ()
+    model: VGG_UNet, clip: float = 5.0, freeze: Sequence[str] = (), group=None
 ) -> Callable:
     """``train_step(state, batch) -> (state, {"loss", "grad_norm"})``: one
     update of ``state`` in place (its step + 1) on a batch of tensors on the
-    model's device; the metrics stay on the device."""
+    model's device; the metrics stay on the device.  ``group`` makes it one
+    step of the data-parallel program over the processes' rows of the
+    global batch (as :func:`~lightly_ocr_tpu_torch.train.train_step.
+    make_train_step`): BatchNorm, OHEM and both normalisers over the global
+    batch, the gradients summed before the freeze and the clip, ``loss``
+    the global loss."""
     params = list(model.parameters())
     frozen = frozen_mask(model, freeze)
+    sync_batch_norm(model, group)
 
     def train_step(state: TrainState, batch: Mapping[str, torch.Tensor]):
         model.train()
         state.optimizer.zero_grad(set_to_none=True)
-        loss = craft_loss(model, batch)
+        loss = craft_loss(model, batch, group)
         loss.backward()
-        norm = apply_craft_update(state.optimizer, params, frozen, clip)
+        norm = apply_craft_update(state.optimizer, params, frozen, clip, group)
+        if group is not None:
+            loss = global_sum(loss.detach(), group)
         state.step += 1
         return state, {"loss": loss.detach(), "grad_norm": norm}
 
@@ -347,30 +381,48 @@ def train_craft(
     records: str | None = None,
     init_backbone=None,
     freeze: Sequence[str] = (),
+    group=None,
 ) -> tuple[VGG_UNet, TrainState, list[float]]:
     """Detector training on synthetic data, or on a detection record file
     (``records``: word rects + transcripts, split into character gaussians
     by :mod:`.pseudo_labels`).  The batches come from
     ``np.random.default_rng(seed)`` as in the JAX package.  The losses are
-    read from the device only at the log points and at the end."""
+    read from the device only at the log points and at the end.
+
+    ``group`` (a ``torch.distributed`` process group, one process per
+    device; :func:`main`'s ``--data-parallel``) trains data-parallel: every
+    process draws the same global batch of ``batch`` rows from the seed and
+    steps on its contiguous share of them (``batch`` must divide by the
+    processes; from ``records`` it decodes only those rows, while every
+    process synthesizes the whole batch to keep the generator in step);
+    rank 0 alone logs and writes the checkpoint."""
     rng = np.random.default_rng(seed)
     model, state = init_craft_state(seed, lr, device, init_backbone, freeze)
     dev = next(model.parameters()).device
-    step_fn = make_craft_train_step(model, freeze=freeze)
+    step_fn = make_craft_train_step(model, freeze=freeze, group=group)
+    rank, per = group_rank(group), batch // group_size(group)
+    if per * group_size(group) != batch:
+        raise ValueError(f"batch {batch} does not split over {group_size(group)} processes")
+    lead = rank == 0
     data_iter = None
     if records is not None:
         from lightly_ocr_tpu_torch.train.pseudo_labels import batches_from_records
 
-        data_iter = batches_from_records(records, batch, height, width, rng)
+        data_iter = batches_from_records(records, batch, height, width, rng,
+                                         rows=slice(rank * per, (rank + 1) * per))
     losses: list[torch.Tensor] = []
     for i in range(num_steps):
-        data = next(data_iter) if data_iter is not None else synthesize_batch(rng, batch, height, width)
+        if data_iter is not None:
+            data = next(data_iter)
+        else:
+            data = synthesize_batch(rng, batch, height, width)
+            data = {k: v[rank * per:(rank + 1) * per] for k, v in data.items()}
         state, metrics = step_fn(state, batch_to(data, dev))
         losses.append(metrics["loss"])
-        if log_every and (i + 1) % log_every == 0:
+        if lead and log_every and (i + 1) % log_every == 0:
             log_fn(f"craft step {i + 1}/{num_steps} loss {losses[-1].item():.5f} "
                    f"gnorm {metrics['grad_norm'].item():.3f}")
-    if checkpoint_dir:
+    if checkpoint_dir and lead:
         from lightly_ocr_tpu_torch.utils.checkpoint import save_checkpoint
 
         save_checkpoint(checkpoint_dir, state.step, state)
@@ -390,7 +442,8 @@ def main(argv: Sequence[str] | None = None) -> int:
                    help="LOR1 detection record file (word boxes + transcripts "
                         "-> character pseudo-labels); default: synthetic data")
     p.add_argument("--data-parallel", action="store_true",
-                   help="shard the batch over all devices (not ported: raises)")
+                   help="shard the batch over all visible devices: one process each "
+                        "(under torchrun, its processes)")
     p.add_argument("--init-backbone", default=None,
                    help="torchvision vgg16_bn state-dict .pth to seed basenet "
                         "slices 1-4 (reference vgg_bn.py:36-43)")
@@ -401,29 +454,34 @@ def main(argv: Sequence[str] | None = None) -> int:
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; the CPU only when asked)")
     args = p.parse_args(argv)
-    if args.data_parallel:
-        raise NotImplementedError(
-            "--data-parallel is not ported: the port trains on one device "
-            "(ROADMAP.md Queue 1, item 2: parallelism)")
     dev = resolve_device(args.device)
-    name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "host"
-    print(f"craft training on device {dev} ({name})", flush=True)
-    _, _, losses = train_craft(
-        num_steps=args.num_steps,
-        batch=args.batch,
-        height=args.height,
-        width=args.width,
-        lr=args.lr,
-        seed=args.seed,
-        device=dev,
-        log_every=args.log_every,
-        checkpoint_dir=args.checkpoint_dir,
-        records=args.records,
-        init_backbone=args.init_backbone,
-        freeze=tuple(t for t in args.freeze.split(",") if t),
-    )
-    print(f"final loss {losses[-1]:.5f} (first {losses[0]:.5f})", flush=True)
+    kw = dict(num_steps=args.num_steps, batch=args.batch, height=args.height, width=args.width,
+              lr=args.lr, seed=args.seed, log_every=args.log_every,
+              checkpoint_dir=args.checkpoint_dir, records=args.records,
+              init_backbone=args.init_backbone,
+              freeze=tuple(t for t in args.freeze.split(",") if t))
+    if launched_by_torchrun():
+        dev, group = from_torchrun(dev)
+        losses = _craft_rank(kw, device=dev, group=group)
+    elif args.data_parallel and len(devices := visible_devices(dev)) > 1:
+        print(f"craft training data-parallel on {len(devices)} devices "
+              f"({backend_for(devices)})", flush=True)
+        losses = spawn(_craft_rank, (kw,), devices)
+    else:
+        losses = _craft_rank(kw, device=dev)
+    if losses:
+        print(f"final loss {losses[-1]:.5f} (first {losses[0]:.5f})", flush=True)
     return 0
+
+
+def _craft_rank(kw: dict, device, group=None) -> list[float] | None:
+    """One process of :func:`main`'s run: :func:`train_craft` on ``device``;
+    rank 0 returns the losses."""
+    name = torch.cuda.get_device_name(device) if device.type == "cuda" else "host"
+    if group_rank(group) == 0:
+        print(f"craft training on device {device} ({name})", flush=True)
+    _, _, losses = train_craft(**kw, device=device, group=group)
+    return losses if group_rank(group) == 0 else None
 
 
 if __name__ == "__main__":

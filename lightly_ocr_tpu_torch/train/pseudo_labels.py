@@ -172,18 +172,20 @@ def batches_from_records(
     height: int,
     width: int,
     rng: np.random.Generator,
+    rows: slice | None = None,
 ) -> Iterator[dict[str, np.ndarray]]:
     """Endless batches drawn with ``rng`` (with replacement), shaped as
     ``synthesize_batch``'s, so ``train_craft(records=...)`` is a drop-in
-    swap."""
+    swap.  ``rows`` (a slice of the ``batch`` drawn) decodes only those
+    rows: one process's share of a data-parallel run's global batch."""
     ds = RecordDataset(path, filtering=False)
     try:
         if len(ds) == 0:
             raise ValueError(f"{path}: empty detection record file")
         while True:
-            idx = rng.integers(0, len(ds), size=batch)
-            images = np.empty((batch, height, width, 3), np.float32)
-            region = np.empty((batch, height // 2, width // 2), np.float32)
+            idx = rng.integers(0, len(ds), size=batch)[slice(None) if rows is None else rows]
+            images = np.empty((len(idx), height, width, 3), np.float32)
+            region = np.empty((len(idx), height // 2, width // 2), np.float32)
             affinity = np.empty_like(region)
             for j, i in enumerate(idx):
                 item = sample_to_training_item(*_decode_sample(*ds.raw(int(i))), height, width)

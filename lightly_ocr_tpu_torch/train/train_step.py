@@ -35,8 +35,18 @@ from torch.utils.checkpoint import checkpoint
 
 from lightly_ocr_tpu_torch.config import Config
 from lightly_ocr_tpu_torch.models.crnn import CRNNet
-from lightly_ocr_tpu_torch.models.layers import frozen_batch_stats, init_train_params
+from lightly_ocr_tpu_torch.models.layers import (
+    frozen_batch_stats,
+    init_train_params,
+    sync_batch_norm,
+)
 from lightly_ocr_tpu_torch.ops.ctc import cross_entropy_ignore_index, ctc_loss
+from lightly_ocr_tpu_torch.parallel.collectives import (
+    all_reduce_grads_,
+    global_sum,
+    group_size,
+    is_split,
+)
 from lightly_ocr_tpu_torch.serving.batch import resolve_device
 
 
@@ -102,47 +112,73 @@ def _apply(model: CRNNet, images, text, remat: bool):
                       context_fn=lambda: (contextlib.nullcontext(), frozen_batch_stats(model)))
 
 
-def loss_fn(model: CRNNet, cfg: Config, batch: dict, remat: bool = False):
+def loss_fn(model: CRNNet, cfg: Config, batch: dict, remat: bool = False, group=None):
     """-> (loss, logits).  ``batch``: ``images`` [B, H, W, C] in [-1, 1];
     CTC: ``labels`` [B, L] and ``lengths`` [B]; Attention: ``text`` [B,
     batch_max_len + 2] ([GO]-prefixed) and ``lengths``.  In ``train()`` the
     attention head is teacher-forced on ``text[:, :-1]`` against
     ``text[:, 1:]`` (``crnn.py:260-262``); in ``eval()`` its greedy decode
-    is scored against the same targets."""
+    is scored against the same targets.
+
+    With ``group`` of more than one process, ``batch`` is this process's
+    rows of the global batch and the loss is its share of the global one
+    (the shares sum to it): the CTC mean divides by the global batch, the
+    cross entropy by the global count of targets."""
+    split = is_split(group)
     if cfg.prediction == "CTC":
         preds = _apply(model, batch["images"], None, remat)
         B, T = preds.shape[:2]
         logp = F.log_softmax(preds, dim=2)
         lengths_in = torch.full((B,), T, dtype=torch.long, device=preds.device)
-        loss = ctc_loss(logp, batch["labels"], lengths_in, batch["lengths"])
+        if split:
+            per = ctc_loss(logp, batch["labels"], lengths_in, batch["lengths"], reduction="none")
+            loss = (per / batch["lengths"].clamp_min(1).to(per.dtype)).sum() / (B * group_size(group))
+        else:
+            loss = ctc_loss(logp, batch["labels"], lengths_in, batch["lengths"])
     else:
         text = batch["text"]
         preds = _apply(model, batch["images"], text[:, :-1], remat)
-        loss = cross_entropy_ignore_index(preds, text[:, 1:], ignore_index=0)
+        loss = cross_entropy_ignore_index(preds, text[:, 1:], ignore_index=0,
+                                          count=(lambda n: global_sum(n, group)) if split else None)
     return loss, preds
 
 
-def make_train_step(model: CRNNet, cfg: Config) -> Callable:
+def make_train_step(model: CRNNet, cfg: Config, group=None) -> Callable:
     """``train_step(state, batch) -> (state, {"loss", "grad_norm"})``: one
     optimizer update of ``state`` in place (its step + 1); the metrics stay
-    on the device."""
+    on the device.
+
+    ``group`` (a ``torch.distributed`` process group) makes it one step of
+    the data-parallel program: each process passes its rows of the global
+    batch, BatchNorm normalises over the global batch
+    (:func:`~lightly_ocr_tpu_torch.models.layers.sync_batch_norm`), the
+    losses are the processes' shares of the global one
+    (:func:`loss_fn`), and the gradients are summed over the processes
+    before the clip, so every process applies the same update, that of the
+    JAX package's step over the global batch; ``loss`` is the global loss.
+    With one process in ``group`` the step is the single-device one, bit for
+    bit."""
     accum = max(1, int(cfg.grad_accum))
+    sync_batch_norm(model, group)
 
     def train_step(state: TrainState, batch: dict):
         model.train()
         state.optimizer.zero_grad(set_to_none=True)
         if accum == 1:
-            loss, _ = loss_fn(model, cfg, batch, cfg.train_remat)
+            loss, _ = loss_fn(model, cfg, batch, cfg.train_remat, group)
             loss.backward()
         else:
             losses = []
             for i in range(accum):
                 micro, _ = loss_fn(model, cfg, {k: v[i] for k, v in batch.items()},
-                                   cfg.train_remat)
+                                   cfg.train_remat, group)
                 micro.backward()  # .grad sums the micro-batches' gradients
                 losses.append(micro.detach())
             loss = torch.stack(losses).sum() / accum
         grads = [p.grad for p in model.parameters() if p.grad is not None]
+        if group is not None:
+            all_reduce_grads_(grads, group)
+            loss = global_sum(loss.detach(), group)
         if accum > 1:
             torch._foreach_div_(grads, float(accum))
         norm = clip_by_global_norm_(grads, cfg.grad_clip)

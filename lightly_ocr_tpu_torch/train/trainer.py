@@ -1,8 +1,9 @@
-"""CRNN trainer: train, evaluate, log, checkpoint and resume on one device
-(port of ``lightly_ocr_tpu/train/trainer.py``).
+"""CRNN trainer: train, evaluate, log, checkpoint and resume, on one device
+or data-parallel over several (port of ``lightly_ocr_tpu/train/trainer.py``).
 
     python -m lightly_ocr_tpu_torch.train.trainer --config config.yml \
         --train-root train.lor --val-root val.lor [--num-iters N] [--device cuda]
+    torchrun --nproc-per-node N -m lightly_ocr_tpu_torch.train.trainer ...
 
 As the JAX package's trainer (reference ``ocr/train/crnn.py``):
 
@@ -18,10 +19,20 @@ As the JAX package's trainer (reference ``ocr/train/crnn.py``):
 * ``log_dataset.txt``, ``log_model.txt`` and ``log_config.txt``.
 
 It runs on the card unless asked otherwise (``device="cpu"``,
-``--device cpu``); without a CUDA device the default raises.  The JAX
-trainer shards the batch over a device mesh; this one uses one device.
-``--model CRAFT`` trains the detector: the other arguments go to
-:func:`lightly_ocr_tpu_torch.train.craft.main` (with ``--device``).
+``--device cpu``); without a CUDA device the default raises.  As the JAX
+trainer builds a ``(mesh_data, mesh_model)`` mesh over every device, the
+CLI builds one over the visible devices of ``--device``'s type (each CUDA
+device, or the one CPU): ``mesh_data`` (-1 = all of them) processes, one a
+device, started by :func:`lightly_ocr_tpu_torch.parallel.launch.spawn`
+(NCCL), or the processes of ``torchrun``.  Each process takes its
+contiguous share of every global batch of ``batch_size`` rows (all draw
+the same batches from the seed) and the step is the JAX package's mesh
+step over the global batch (:func:`~lightly_ocr_tpu_torch.train.
+train_step.make_train_step` with ``group``); rank 0 alone evaluates, logs
+and writes checkpoints, and every rank resumes from ``saved_model_path``.
+``mesh_model`` > 1 raises.  ``--model CRAFT`` trains the detector: the
+other arguments go to :func:`lightly_ocr_tpu_torch.train.craft.main` (with
+``--device``).
 """
 from __future__ import annotations
 
@@ -37,6 +48,15 @@ import torch
 from lightly_ocr_tpu_torch.config import Config, load_config
 from lightly_ocr_tpu_torch.data.loader import DataLoader
 from lightly_ocr_tpu_torch.data.records import open_dataset
+from lightly_ocr_tpu_torch.parallel.collectives import group_rank, group_size
+from lightly_ocr_tpu_torch.parallel.launch import backend_for, from_torchrun, spawn
+from lightly_ocr_tpu_torch.parallel.mesh import (
+    DATA_AXIS,
+    launched_by_torchrun,
+    make_mesh,
+    refuse_model_axis,
+    visible_devices,
+)
 from lightly_ocr_tpu_torch.serving.batch import resolve_device
 from lightly_ocr_tpu_torch.text.converters import build_converter
 from lightly_ocr_tpu_torch.train.train_step import (
@@ -84,20 +104,35 @@ def encode_batch(cfg: Config, converter, images: np.ndarray, labels: list[str], 
 
 
 class Trainer:
-    def __init__(self, cfg: Config, device=None):
+    """``group`` (a ``torch.distributed`` process group, one process per
+    device) makes this process one rank of the data-parallel run (module
+    docstring); ``None`` trains on ``device`` alone."""
+
+    def __init__(self, cfg: Config, device=None, group=None):
         self.cfg = cfg
         self.device = resolve_device("cuda" if device is None else device)
+        self.group, self.rank, world = group, group_rank(group), group_size(group)
+        self.lead = self.rank == 0
+        self.per_rank = cfg.batch_size // world
+        if self.per_rank * world != cfg.batch_size:
+            raise ValueError(f"batch_size {cfg.batch_size} does not split over {world} processes")
+        # this process's rows of each global batch (build_loaders(rows=...))
+        self.rows = slice(self.rank * self.per_rank, (self.rank + 1) * self.per_rank)
         self.converter = build_converter(cfg.prediction, cfg.character)
         self.model, self.state = init_train_state(cfg, cfg.seeds, self.device)
-        self.train_step = make_train_step(self.model, cfg)
+        self.train_step = make_train_step(self.model, cfg, group)
         self.eval_step = make_eval_step(self.model, cfg)
-        os.makedirs(cfg.log_dir, exist_ok=True)
+        if self.lead:
+            os.makedirs(cfg.log_dir, exist_ok=True)
         self.best_acc = -1.0
         name = torch.cuda.get_device_name(self.device) if self.device.type == "cuda" else "host"
-        print(f"training on device {self.device} ({name})", flush=True)
+        print(f"training on device {self.device} ({name})"
+              + (f", rank {self.rank} of {world}" if group is not None else ""), flush=True)
 
     # ------------------------------------------------------------------
     def _log(self, fname: str, text: str) -> None:
+        if not self.lead:
+            return
         with open(os.path.join(self.cfg.log_dir, fname), "a") as f:
             f.write(text + "\n")
 
@@ -184,7 +219,8 @@ class Trainer:
             )
         lines.append(DASHED)
         text = "\n".join(lines)
-        print(text, flush=True)
+        if self.lead:
+            print(text, flush=True)
         self._log("log_train.txt", text)
 
     # ------------------------------------------------------------------
@@ -206,12 +242,15 @@ class Trainer:
             if done:
                 break
             for images, labels in train_loader:
+                if len(images) != self.per_rank:
+                    raise ValueError(f"the train loader gives {len(images)} rows a batch; this "
+                                     f"process takes {self.per_rank} (build_loaders(cfg, rows=self.rows))")
                 batch = encode_batch(cfg, self.converter, images, labels, self.device)
                 self.state, metrics = self.train_step(self.state, batch)
                 avg_loss.add(metrics["loss"].item())
                 i += 1
 
-                if i % cfg.val_interval == 0:
+                if self.lead and i % cfg.val_interval == 0:
                     ev = self.evaluate(val_loader)
                     if ev["accuracy"] > self.best_acc:
                         self.best_acc = ev["accuracy"]
@@ -221,23 +260,26 @@ class Trainer:
                     self.log_eval(i, avg_loss.val(), ev, time.time() - start)
                     avg_loss.reset()
 
-                if i % cfg.save_interval == 0:
+                if self.lead and i % cfg.save_interval == 0:
                     save_checkpoint(os.path.join(cfg.log_dir, "checkpoints"), i, self.state)
                 if i >= cfg.num_iters:
-                    print("Stop training here.")
+                    if self.lead:
+                        print("Stop training here.")
                     done = True
                     break
         return self.state
 
 
-def build_loaders(cfg: Config, seed: int | None = None):
+def build_loaders(cfg: Config, seed: int | None = None, rows: slice | None = None):
+    """(train, val) loaders of ``cfg``; ``rows`` is the share of each global
+    train batch that this process decodes (:attr:`Trainer.rows`)."""
     kw = dict(character=cfg.character if cfg.filtering else None,
               batch_max_len=cfg.batch_max_len, rgb=cfg.rgb)
     seed = cfg.seeds if seed is None else seed
     train_loader = DataLoader(
         open_dataset(cfg.train_root, **kw), batch_size=cfg.batch_size,
         height=cfg.height, width=cfg.width, keep_ratio=cfg.keep_ratio,
-        shuffle=True, seed=seed, workers=cfg.workers,
+        shuffle=True, seed=seed, workers=cfg.workers, rows=rows,
     )
     val_loader = DataLoader(
         open_dataset(cfg.val_root, **kw), batch_size=cfg.batch_size,
@@ -278,10 +320,28 @@ def main(argv: Sequence[str] | None = None) -> int:
     }
     if overrides:
         cfg = dataclasses.replace(cfg, **overrides)
-    trainer = Trainer(cfg, device=args.device)
-    train_loader, val_loader = build_loaders(cfg)
-    trainer.fit(train_loader, val_loader)
+    device = resolve_device(args.device)
+    refuse_model_axis(cfg.mesh_model)
+    if launched_by_torchrun():
+        device, group = from_torchrun(device)
+        train_rank(cfg, device=device, group=group)
+        return 0
+    mesh = make_mesh(cfg.mesh_data, cfg.mesh_model, visible_devices(device))
+    if mesh.shape[DATA_AXIS] > 1:
+        print(f"training data-parallel on {mesh.shape[DATA_AXIS]} devices "
+              f"({backend_for(mesh.data_devices)})", flush=True)
+        spawn(train_rank, (cfg,), mesh.data_devices)
+    else:
+        train_rank(cfg, device=device)
     return 0
+
+
+def train_rank(cfg: Config, device, group=None) -> None:
+    """One process of a training run: a :class:`Trainer` on ``device`` (a
+    rank of ``group``, if given) fitted on the loaders of ``cfg``."""
+    trainer = Trainer(cfg, device=device, group=group)
+    train_loader, val_loader = build_loaders(cfg, rows=trainer.rows)
+    trainer.fit(train_loader, val_loader)
 
 
 if __name__ == "__main__":

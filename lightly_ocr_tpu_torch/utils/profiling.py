@@ -1,0 +1,134 @@
+"""Tracing and per-stage timing (port of ``lightly_ocr_tpu/utils/profiling.py``).
+
+* :func:`trace`: a context manager around ``torch.profiler.profile`` with
+  the CPU and CUDA activities, writing a Chrome trace (``trace.json``, for
+  ``chrome://tracing`` or Perfetto) into ``log_dir``; the CUDA activity is
+  asked for where a card is present, and the profiler then records every
+  kernel the card ran, the hand kernels by their names (``seam_tail``,
+  ``cc_strip``, ``conv12_pool`` ...); ``all_threads`` records the
+  operators of every host thread (a mesh's replica threads), not only the
+  calling one's;
+* :func:`annotate`: a named span (``record_function``, and an NVTX range
+  on the card) so that pipeline stages show on the timeline;
+* :class:`StageTimer`: named wall-clock totals with a synchronise of the
+  device of each result, for per-stage breakdowns.
+"""
+from __future__ import annotations
+
+import contextlib
+import os
+import time
+from collections import defaultdict
+from typing import Iterator
+
+import torch
+
+TRACE_FILE = "trace.json"
+
+
+@contextlib.contextmanager
+def trace(log_dir: str, cuda: bool | None = None,
+          all_threads: bool = False) -> Iterator[torch.profiler.profile]:
+    """Profile the block and write its Chrome trace to
+    ``<log_dir>/trace.json``.  ``cuda`` (default: whether a card is
+    present) adds the CUDA activity; asked for without a card, it raises.
+    ``all_threads`` records every thread's operators; a PyTorch whose
+    profiler cannot raises."""
+    from torch.profiler import ProfilerActivity, profile
+
+    kw = {}
+    if all_threads:
+        from torch._C._profiler import _ExperimentalConfig
+
+        if not all_threads_supported():
+            raise RuntimeError(f"PyTorch {torch.__version__}'s profiler cannot record other threads")
+        kw["experimental_config"] = _ExperimentalConfig(profile_all_threads=True)
+    if cuda is None:
+        cuda = torch.cuda.is_available()
+    if cuda and not torch.cuda.is_available():
+        raise RuntimeError("a CUDA trace was asked for, and no CUDA device is available")
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities, **kw) as prof:
+        yield prof
+        if cuda:
+            torch.cuda.synchronize()
+    prof.export_chrome_trace(os.path.join(log_dir, TRACE_FILE))
+
+
+def all_threads_supported() -> bool:
+    """Whether this PyTorch's profiler can record every thread's operators
+    (``trace(all_threads=True)``)."""
+    from torch._C._profiler import _ExperimentalConfig
+
+    return "profile_all_threads" in (_ExperimentalConfig.__init__.__doc__ or "")
+
+
+@contextlib.contextmanager
+def annotate(name: str) -> Iterator[None]:
+    """A named span on the profiler's timeline (and an NVTX range on the
+    card, for external CUDA tools)."""
+    nvtx = torch.cuda.is_available()
+    if nvtx:
+        torch.cuda.nvtx.range_push(name)
+    try:
+        with torch.profiler.record_function(name):
+            yield
+    finally:
+        if nvtx:
+            torch.cuda.nvtx.range_pop()
+
+
+def _sync(result) -> None:
+    """Wait for the device of every CUDA tensor in ``result`` (a tensor, or
+    a tuple / list / dict of them)."""
+    if isinstance(result, torch.Tensor):
+        if result.is_cuda:
+            torch.cuda.synchronize(result.device)
+    elif isinstance(result, dict):
+        for v in result.values():
+            _sync(v)
+    elif isinstance(result, (list, tuple)):
+        for v in result:
+            _sync(v)
+
+
+class StageTimer:
+    """Accumulates wall-clock per named stage; ``sync=True`` waits for the
+    device of each result so that the timings hold the device's work."""
+
+    def __init__(self, sync: bool = True):
+        self.sync = sync
+        self.totals: dict[str, float] = defaultdict(float)
+        self.counts: dict[str, int] = defaultdict(int)
+
+    @contextlib.contextmanager
+    def stage(self, name: str, result_ref: list | None = None):
+        """Time the block; ``result_ref[0]``, if given, is synchronised
+        before the clock stops."""
+        t0 = time.perf_counter()
+        yield
+        if self.sync and result_ref:
+            _sync(result_ref[0])
+        self.totals[name] += time.perf_counter() - t0
+        self.counts[name] += 1
+
+    def time(self, name: str, fn, *args, **kwargs):
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        if self.sync:
+            _sync(out)
+        self.totals[name] += time.perf_counter() - t0
+        self.counts[name] += 1
+        return out
+
+    def report(self) -> str:
+        lines = []
+        for name in sorted(self.totals, key=self.totals.get, reverse=True):
+            t, n = self.totals[name], self.counts[name]
+            lines.append(f"{name:24s} {t*1e3:9.1f} ms total  {t/n*1e3:8.1f} ms/call  x{n}")
+        return "\n".join(lines)
+
+    def reset(self) -> None:
+        self.totals.clear()
+        self.counts.clear()

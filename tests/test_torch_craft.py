@@ -35,7 +35,9 @@ from lightly_ocr_tpu_torch.train import craft
 from lightly_ocr_tpu_torch.train import pseudo_labels as pl
 from lightly_ocr_tpu_torch.train.train_step import TrainState
 from lightly_ocr_tpu_torch.utils.checkpoint import load_state_file, restore_checkpoint
+from lightly_ocr_tpu_torch.parallel.launch import spawn
 from lightly_ocr_tpu_torch.weights import state_dict_from_variables
+from torch_dp_workers import assert_step_equal, run_cases
 
 HW = 64  # the step's canvas: 64x64, batch 2
 REL = 1e-8  # relative L2 of each float64 tensor
@@ -226,6 +228,14 @@ def test_detection_records_and_batches_equal_jax(tmp_path, monkeypatch, pil):
         for k in w:
             np.testing.assert_array_equal(g[k], w[k], err_msg=k)
     got.close()
+    # a process's rows of each global batch (data-parallel): the same rows,
+    # decoding only those
+    for rows in (slice(0, 1), slice(1, 3)):
+        part = pl.batches_from_records(path, 3, 64, 96, np.random.default_rng(2), rows=rows)
+        for g, w in zip([next(part) for _ in range(3)], want):
+            for k in w:
+                np.testing.assert_array_equal(g[k], w[k][rows], err_msg=k)
+        part.close()
     assert pl.write_detection_records(str(tmp_path / "e.lor"), iter([])) == 0
     with pytest.raises(ValueError, match="empty"):
         next(pl.batches_from_records(str(tmp_path / "e.lor"), 1, 8, 8, np.random.default_rng(0)))
@@ -302,6 +312,23 @@ def test_train_step_matches_jax(ref, freeze):
         if k.startswith("basenet.slice1.") and freeze:
             moved = not torch.equal(got[k], ref["init64"][k])
             assert moved == k.endswith(("running_mean", "running_var")), k
+
+
+def test_two_rank_step_matches_jax(ref):
+    """The data-parallel step with slice1 frozen over two gloo ranks
+    (spawned, one thread each; one image each) equals the JAX package's
+    single-device float64 step on both images: loss 1e-10, every gradient
+    and every tensor after the update within 1e-8 relative L2, the frozen
+    gradients zero and slice1's parameters unchanged.  The two images hold
+    different numbers of positive pixels, so a per-shard OHEM (``min``,
+    ``max``, ``num_pos``, the halvings' counts), normaliser or BatchNorm
+    fails it."""
+    pos = (ref["batch"]["region"] > 0.1).sum((1, 2))
+    assert pos[0] != pos[1]
+    payload = {"init": ref["init64"], "freeze": ("slice1",), "batch": torch_batch(ref["batch"])}
+    got = spawn(run_cases, ({"craft": ("craft", payload)},), ["cpu", "cpu"])["craft"]
+    frozen = {n for n in ref["grads"] if n.startswith("basenet.slice1.")}
+    assert_step_equal(got, ref["loss"], ref["grads"], ref[("slice1",)], ref["init64"], frozen=frozen)
 
 
 @pytest.mark.parametrize("trainable_scale", [0.5, 40.0], ids=["under_clip", "over_clip"])
@@ -460,11 +487,16 @@ def test_cli_trains_and_checkpoints(tmp_path, capsys):
         assert all(torch.equal(a[s], b[s]) for s in b)
 
 
-def test_cli_refuses_what_it_cannot_do():
+def test_cli_refuses_what_it_cannot_do(capsys):
+    """Without a card the CLI refuses the default device, and a CRAFT flag
+    without ``--model CRAFT``; ``--data-parallel`` is ported: on the CPU,
+    which is one device, it trains in this process."""
     from lightly_ocr_tpu_torch.train.trainer import main
 
-    with pytest.raises(NotImplementedError, match="Queue 1"):
-        main(["--model", "CRAFT", "--device", "cpu", "--data-parallel"])
+    assert main(["--model", "CRAFT", "--device", "cpu", "--data-parallel", "--num-steps", "1",
+                 "--batch", "1", "--height", "32", "--width", "32", "--log-every", "0"]) == 0
+    out = capsys.readouterr().out
+    assert "craft training on device cpu" in out and "data-parallel" not in out
     if not torch.cuda.is_available():  # without --device it asks for the card
         with pytest.raises(RuntimeError, match="no CUDA device"):
             main(["--model", "CRAFT", "--num-steps", "1"])

@@ -225,6 +225,30 @@ def test_loader_batches_match_jax(words, keep_ratio):
         assert np.mean(im == jim) >= 0.99
 
 
+def test_loader_decodes_only_its_rows(words):
+    """``rows``: a process's share of each global batch, equal to the whole
+    batch's rows, with only those samples read from the records."""
+    kw = dict(batch_size=8, keep_ratio=True, seed=5, workers=2)
+    full = list(DataLoader(RecordDataset(words["train"], character=CHARS), **kw))
+    ds = RecordDataset(words["train"], character=CHARS)
+    read = []
+    get = ds.__getitem__
+
+    class Counting:
+        def __len__(self):
+            return len(ds)
+
+        def __getitem__(self, i):
+            read.append(i)
+            return get(i)
+
+    part = list(DataLoader(Counting(), **kw, rows=slice(4, 8)))
+    assert len(part) == len(full) and len(read) == 4 * len(full)
+    for (im, lab), (fim, flab) in zip(part, full):
+        assert lab == flab[4:8]
+        np.testing.assert_array_equal(im, fim[4:8])
+
+
 def test_loader_raises_a_worker_error(tmp_path):
     path = str(tmp_path / "bad.lor")
     with RecordWriter(path) as w:
@@ -368,8 +392,9 @@ def test_trainer_cli(words, tmp_path, monkeypatch):
     """``python -m lightly_ocr_tpu_torch.train.trainer --device cpu`` trains
     from a JSON config (read without pyyaml, as on the card); without
     ``--device`` it wants the card; ``--model CRAFT`` goes to the detector's
-    trainer (which refuses ``--data-parallel``), and a CRAFT flag is refused
-    without it."""
+    trainer (its ``--data-parallel`` on the CPU, which has one device, trains
+    in this process), and a CRAFT flag is refused without it; a model axis
+    (``mesh_model`` 2) is refused."""
     cfg_path = tmp_path / "tiny.json"
     cfg_path.write_text(json.dumps({**TINY, "prediction": "CTC", "transform": "None",
                                     "val_interval": 2, "save_interval": 2, "max_iter": 1,
@@ -387,8 +412,12 @@ def test_trainer_cli(words, tmp_path, monkeypatch):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             main(["--config", str(cfg_path), "--train-root", words["train"], "--val-root", words["val"]])
-    with pytest.raises(NotImplementedError, match="Queue 1"):
-        main(["--model", "CRAFT", "--data-parallel", "--device", "cpu"])
+    assert main(["--model", "CRAFT", "--data-parallel", "--device", "cpu", "--num-steps", "1",
+                 "--batch", "1", "--height", "32", "--width", "32", "--log-every", "0"]) == 0
+    model_axis = tmp_path / "model_axis.json"
+    model_axis.write_text(json.dumps({**TINY, "mesh_model": 2}))
+    with pytest.raises(ValueError, match="ROADMAP.md Queue 1, item 9"):
+        main(["--config", str(model_axis), "--device", "cpu"])
     with pytest.raises(SystemExit):
         main(["--config", str(cfg_path), "--num-steps", "2", "--device", "cpu"])
     monkeypatch.setitem(sys.modules, "yaml", None)

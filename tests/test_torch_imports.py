@@ -31,7 +31,8 @@ for m in mods:
 for m in ("engines", "pipeline", "ops.poly", "ops.ctc", "serving.server", "serving.ingress",
           "serving.upload", "train.trainer", "train.train_step", "data.records", "data.loader",
           "data.generator", "data.lmdb_compat", "utils.checkpoint", "utils.metrics", "train.craft",
-          "train.pseudo_labels", "compat"):
+          "train.pseudo_labels", "compat", "parallel", "parallel.mesh", "parallel.launch",
+          "parallel.collectives", "export", "native_postproc", "utils.profiling", "ops.rowpack"):
     assert "lightly_ocr_tpu_torch." + m in mods, m
 import chip_smoke
 from lightly_ocr_tpu_torch.serving.server import (BatchedServeModel, InferenceWorker, create_app,
@@ -48,6 +49,12 @@ from lightly_ocr_tpu_torch.data.records import encode_png
 from lightly_ocr_tpu_torch.train.craft import init_craft_state, main, train_craft
 from lightly_ocr_tpu_torch.train.pseudo_labels import batches_from_records, write_detection_records
 from lightly_ocr_tpu_torch.compat import getDetBoxes, resizeAspectRatio, CRAFT, loadImage
+from lightly_ocr_tpu_torch.parallel import make_mesh, param_sharding_rules, shard_batch
+from lightly_ocr_tpu_torch.parallel.launch import spawn, from_torchrun
+from lightly_ocr_tpu_torch.export import export_craft, export_crnn, main
+from lightly_ocr_tpu_torch.native_postproc import det_boxes, label_components
+from lightly_ocr_tpu_torch.utils.profiling import StageTimer, annotate, trace
+from lightly_ocr_tpu_torch.ops.rowpack import stem_conv_rowpacked, tail_scores_rowpacked
 assert "jax" not in sys.modules or sys.modules["jax"] is None
 print("imported", len(mods))
 """

@@ -62,7 +62,9 @@ from lightly_ocr_tpu_torch.train.train_step import (
     make_optimizer,
     make_train_step,
 )
+from lightly_ocr_tpu_torch.parallel.launch import spawn
 from lightly_ocr_tpu_torch.weights import state_dict_from_variables
+from torch_dp_workers import assert_step_equal, run_cases
 
 # the tiny config of tests/test_training.py, Adam for the update check
 _SMALL = dict(sequence="biLSTM", output_channel=64, hidden_size=32, height=32, width=64,
@@ -97,7 +99,7 @@ def to_state_dict(params, stats=None):
     tree = {"params": jax.tree.map(np.asarray, params)}
     if stats is not None:
         tree["batch_stats"] = jax.tree.map(np.asarray, stats)
-    return {k: v.double() for k, v in state_dict_from_variables(tree).items()}
+    return state_dict_from_variables(tree, np.float64)
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -208,6 +210,31 @@ def test_adam_step_matches_jax(case):
     assert got.keys() == case["after"].keys()
     for k, ref in case["after"].items():
         np.testing.assert_allclose(got[k].numpy(), ref.numpy(), rtol=2e-5, atol=2e-6, err_msg=k)
+
+
+def test_two_rank_step_matches_jax(case):
+    """The data-parallel step over two gloo ranks (spawned, one thread
+    each), each on its half of the batch, equals the JAX package's
+    single-device float64 step on the whole batch (which
+    ``tests/test_multichip.py`` holds equal to its mesh step): loss 1e-10,
+    each gradient and each tensor after the update 1e-8 relative L2 (the
+    TPS rectifier's 1e-3, as above; after the update, 1e-6 elsewhere in
+    the TPS case: Adam divides each gradient by its own size, which
+    magnifies the rectifier's round-off where a gradient is near eps).  The
+    halves hold different numbers of target tokens (``abc de`` against
+    ``fghij a``), so a per-shard normaliser, BatchNorm or mean fails it."""
+    lengths = case["batch"]["lengths"]
+    assert lengths[:2].sum() != lengths[2:].sum()
+    payload = {"cfg": case["cfg"], "init": case["init"], "batch": torch_batch(case["batch"])}
+    if case["name"] == "TPS":
+        payload["rectified"] = case["rectified"]
+    got = spawn(run_cases, ({case["name"]: ("crnn", payload)},), ["cpu", "cpu"])[case["name"]]
+
+    def tol(name):
+        return 1e-3 if name.startswith("Transformation.") else 1e-8
+
+    assert_step_equal(got, case["loss"], case["grads"], case["after"], case["init"], tol=tol,
+                      after_tol=(lambda n: max(tol(n), 1e-6)) if case["name"] == "TPS" else None)
 
 
 def test_eval_step_matches_jax(case):
