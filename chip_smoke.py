@@ -129,13 +129,25 @@ exits non-zero with the traceback):
     held to the single-device step (loss 1e-10, every tensor 1e-8 relative
     L2, the TPS rectifier 1e-3) and in float32 with the distance printed,
     and ms a step;
-16. ``export``: ``export_crnn`` (TPS + Attention, full width) and
+16. ``model_axis``: (a) ``BatchedOCR`` on a 1x2 mesh of ``cuda:0`` (a
+    model axis: one replica) on phase 6's receipts and plan, equal to the
+    unsharded call entry for entry, kernels #1, #2 and #5 launched once;
+    (b) the ``Config()`` CRNN (Adadelta) at b8 and (c) ``VGG_UNet`` at b2
+    256x192 (slice1 frozen), one step on two gloo ranks of the card as a
+    1x2 mesh (tensor parallelism) against one process's: float64 loss,
+    ``grad_norm``, every gradient and state tensor within 1e-10 (a state
+    tensor with gradient elements below Adam's eps 1e-9), the CRNN in
+    float32 within max(1e-3, 4x one process's own float32 distance),
+    replicated tensors equal on both ranks; ms a step, all-reduces a step
+    and bytes of parameters and optimizer state a rank against one
+    process;
+17. ``export``: ``export_crnn`` (TPS + Attention, full width) and
     ``export_craft`` on ``cuda``, saved, reloaded and held to the eager
     modules;
-17. ``native``: ``csrc/postproc.cc`` built with ``g++``; its ``det_boxes``
+18. ``native``: ``csrc/postproc.cc`` built with ``g++``; its ``det_boxes``
     against the card's ``get_det_boxes`` on phase 2's score maps (equal
     counts, IoU >= 0.97);
-18. ``profile``: ``utils.profiling.trace`` around two b16 dispatches; the
+19. ``profile``: ``utils.profiling.trace`` around two b16 dispatches; the
     Chrome trace must hold the card's kernels and name ``seam_tail``,
     ``cc_strip`` and ``conv12_pool``;
 and, after phase 5, ``rowpack``: one dispatch of the bf16
@@ -219,6 +231,14 @@ PAR_PX, PAR_TEXTS, PAR_CONF = 2, 0.95, 1e-2  # rects (px), share of equal texts,
 DP_CRNN_BATCH = 8  # phase parallel: the CRNN step's global batch (Config(): TPS + Attention)
 DP_CRAFT = (4, 960, 640)  # and the CRAFT step's (batch, height, width), slice1 frozen
 DP_STEPS = 3  # timed float32 steps a case, after the compared one
+MA_CRNN_BATCH = 8  # phase model_axis: the CRNN step's batch (Config(): TPS + Attention, Adadelta)
+MA_CRAFT = (2, 256, 192)  # and the CRAFT step's (batch, height, width), slice1 frozen, float64
+MA_TOL64 = 1e-10  # 1x2 against one process in float64: loss, grad_norm, each gradient and state tensor
+MA_TINY64 = 1e-9  # a state tensor whose gradient has an element below Adam's eps (1e-8): the update
+# lr * g / (|g| + eps) weighs that element like the others, with its own relative round-off
+MA_TOL32 = 1e-3  # and in float32 (the CRNN step), or TRAIN_GRAD_FACTOR x one process's own float32
+# distance to its float64 step, where that is larger
+MA_STEPS = 3  # timed float32 CRNN steps, after the compared one
 EXPORT_TOL = 1e-4  # reloaded program vs eager module, max |diff| over max |value| (TF32 off)
 EXPORT_CRAFT_HW = (320, 256)  # the detector's exported canvas
 NATIVE_IOU = 0.97  # host det_boxes vs the card's get_det_boxes (tests/test_native.py)
@@ -1912,6 +1932,7 @@ def parallel_serving(cfg, det_sd, rec_sd, imgs, smi: str) -> dict:
     for label, ocr in (("unsharded", plain), (f"mesh x{n}", sharded)):
         log(f"parallel serving trace, {label}, one b{args[0].shape[0]} dispatch on {smi}: "
             + json.dumps(dispatch_trace(ocr, args)))
+    sharded.close()
     return rps
 
 
@@ -1980,10 +2001,11 @@ def dispatch_trace(ocr, args) -> dict:
             "host_ops_sum_ms": round(sum(_union_ms(t["ops"]) for t in threads.values()), 3)}
 
 
-def dp_inputs(dtype):
-    """The seeded inputs of phase parallel's two steps, made alike in every
-    process: (CRNN config, its init state, its global batch; CRAFT's init
-    state and global batch)."""
+def dp_inputs(dtype, cfg=None, craft_bhw=DP_CRAFT, crnn_b: int = DP_CRNN_BATCH):
+    """The seeded inputs of phase parallel's two steps (phase model_axis's
+    with its ``cfg``, ``craft_bhw`` and ``crnn_b``), made alike in every process: (CRNN
+    config, its init state, its global batch; CRAFT's init state and global
+    batch)."""
     from lightly_ocr_tpu_torch.config import Config
     from lightly_ocr_tpu_torch.models.crnn import CRNNet
     from lightly_ocr_tpu_torch.models.layers import init_train_params
@@ -1991,41 +2013,46 @@ def dp_inputs(dtype):
     from lightly_ocr_tpu_torch.text.converters import build_converter
     from lightly_ocr_tpu_torch.train.craft import synthesize_batch
 
-    cfg = Config(adam=True, lr=1e-3)
+    cfg = Config(adam=True, lr=1e-3) if cfg is None else cfg
     rng = np.random.default_rng(SEED)
     words = ["".join(rng.choice(list(cfg.character), size=int(rng.integers(2, 9))))
-             for _ in range(DP_CRNN_BATCH)]
+             for _ in range(crnn_b)]
     text, lengths = build_converter(cfg.prediction, cfg.character).encode(words, cfg.batch_max_len)
-    crnn_batch = {"images": torch.from_numpy(rng.uniform(-1, 1, (DP_CRNN_BATCH, cfg.height, cfg.width, 1)))
+    crnn_batch = {"images": torch.from_numpy(rng.uniform(-1, 1, (crnn_b, cfg.height, cfg.width, 1)))
                   .to(dtype), "text": torch.from_numpy(text).long(), "lengths": torch.from_numpy(lengths).long()}
-    b, h, w = DP_CRAFT
+    b, h, w = craft_bhw
     craft_batch = {k: torch.from_numpy(v).to(dtype) for k, v in synthesize_batch(rng, b, h, w).items()}
     crnn_sd = init_train_params(CRNNet(cfg), torch.Generator().manual_seed(SEED)).state_dict()
     craft_sd = init_train_params(VGG_UNet(), torch.Generator().manual_seed(SEED)).state_dict()
     return cfg, crnn_sd, crnn_batch, craft_sd, craft_batch
 
 
-def dp_step(kind: str, dtype, device, group, rows: slice | None = None):
+def dp_step(kind: str, dtype, device, group, rows: slice | None = None, inputs=dp_inputs):
     """(model, step function, batch on ``device``) of one case, from
-    :func:`dp_inputs`; ``rows`` takes this process's share of the batch."""
+    ``inputs(dtype)``; ``rows`` takes this process's share of the batch; a
+    ``MeshGroups`` with a model axis shards the model over it."""
     from lightly_ocr_tpu_torch.models.crnn import CRNNet
     from lightly_ocr_tpu_torch.models.vgg_unet import VGG_UNet
+    from lightly_ocr_tpu_torch.parallel.mesh import mesh_groups
+    from lightly_ocr_tpu_torch.parallel.tensor import shard_module
     from lightly_ocr_tpu_torch.train import craft
     from lightly_ocr_tpu_torch.train.train_step import (TrainState, flatten_lstms, make_optimizer,
                                                         make_train_step)
 
-    cfg, crnn_sd, crnn_batch, craft_sd, craft_batch = dp_inputs(dtype)
+    cfg, crnn_sd, crnn_batch, craft_sd, craft_batch = inputs(dtype)
     if kind == "crnn":
         model = CRNNet(cfg)
         model.load_state_dict(crnn_sd)
         model.to(device, dtype).train()
         flatten_lstms(model)
+        shard_module(model, mesh_groups(group))
         state = TrainState(model, make_optimizer(cfg, model.parameters()))
         step, batch = make_train_step(model, cfg, group), crnn_batch
     else:
         model = VGG_UNet()
         model.load_state_dict(craft_sd)
         model.to(device, dtype).train()
+        shard_module(model, mesh_groups(group))
         state = TrainState(model, craft.make_craft_optimizer(model.parameters()))
         step, batch = craft.make_craft_train_step(model, freeze=("slice1",), group=group), craft_batch
     rows = rows or slice(None)
@@ -2149,6 +2176,234 @@ def parallel_training(smi: str) -> None:
                 assert r["grad_rect"] <= TRAIN_GRAD64_TPS_TOL and r["state_rect"] <= TRAIN_GRAD64_TPS_TOL, \
                     f"{kind}: the data-parallel TPS rectifier differs"
                 assert r["zero_worst"] <= CRAFT_ZERO64, f"{kind}: a zero gradient is not zero"
+
+
+def model_axis_serving(cfg, det_sd, rec_sd, imgs, smi: str) -> None:
+    """Phase model_axis (a): ``BatchedOCR`` on a 1x2 mesh of ``cuda:0``
+    (a model axis, which adds no work: one replica a data index) on phase
+    6's receipts and plan: entry for entry the unsharded call, kernels #1,
+    #2 and #5 launched once."""
+    from lightly_ocr_tpu_torch.parallel import make_mesh
+    from lightly_ocr_tpu_torch.serving.batch import BatchedOCR
+
+    mesh = make_mesh(1, 2, [torch.device("cuda", 0)] * 2)
+    plain = BatchedOCR(cfg, det_sd, rec_sd, boxes_per_image=BOXES, device="cuda")
+    ocr = BatchedOCR(cfg, det_sd, rec_sd, boxes_per_image=BOXES, mesh=mesh)
+    try:
+        (cb, gb), _ = next(iter(plain.group(imgs).items()))
+        args = plain.prepare(imgs, cb, gb)
+        want = plain(*args)
+        ocr(*args)  # warm
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        got = ocr(*args)
+        torch.cuda.synchronize()
+        launches = launch_counts()
+    finally:
+        ocr.close()
+    equal = {k: torch.equal(got[k], want[k]) for k in want}
+    log(f"model_axis serving: mesh {mesh.shape} on {[str(d) for row in mesh.devices for d in row]}, "
+        f"{len(ocr.replicas)} replica(s), b{args[0].shape[0]}; launches {launches}; equal to the "
+        f"unsharded call entry for entry: {equal}; valid boxes {int(want['valid'].sum())} on {smi}")
+    for k in ("seam_tail", "cc", "conv12_pool"):
+        assert launches[k] == 1, f"{k} did not launch once on the model-axis mesh: {launches}"
+    assert all(equal.values()), "the model-axis mesh differs from the unsharded call"
+
+
+_MA_INPUTS: dict = {}
+
+
+def ma_inputs(dtype):
+    """Phase model_axis's inputs (made once a dtype): the ``Config()`` CRNN
+    (Adadelta) at ``MA_CRNN_BATCH`` and the CRAFT step at ``MA_CRAFT``."""
+    from lightly_ocr_tpu_torch.config import Config
+
+    if dtype not in _MA_INPUTS:
+        _MA_INPUTS[dtype] = dp_inputs(dtype, Config(), MA_CRAFT, MA_CRNN_BATCH)
+    return _MA_INPUTS[dtype]
+
+
+def ma_bytes(model, optimizer) -> int:
+    """This process's bytes of parameters and optimizer state."""
+    params = sum(p.numel() * p.element_size() for p in model.parameters())
+    return params + sum(v.numel() * v.element_size() for s in optimizer.state.values()
+                        for v in s.values() if torch.is_tensor(v))
+
+
+def ma_result(model, m, calls: int, state) -> dict:
+    """A step's loss, grad_norm, clipped gradients and state, each sharded
+    tensor gathered over the model group; the collectives it called and
+    this process's bytes."""
+    from lightly_ocr_tpu_torch.parallel.collectives import gather_along
+    from lightly_ocr_tpu_torch.parallel.tensor import full_state_dict, model_shards
+
+    shards = model_shards(model)
+    grads = {k: p.grad.detach() for k, p in model.named_parameters() if p.grad is not None}
+    return {"loss": m["loss"].item(), "grad_norm": m["grad_norm"].item(),
+            "grads": {k: gather_along(g, 0, model.mesh_groups) if k in shards else g.clone()
+                      for k, g in grads.items()},
+            "state": {k: v.detach().clone() for k, v in full_state_dict(model).items()},
+            "collectives": calls, "bytes": ma_bytes(model, state.optimizer)}
+
+
+def ma_replicas_equal(model) -> bool:
+    """Whether every replicated parameter is bit for bit the same on the
+    ranks of the model group (each computes its gradient alone)."""
+    from lightly_ocr_tpu_torch.parallel.collectives import gather_along
+    from lightly_ocr_tpu_torch.parallel.tensor import model_shards
+
+    shards = model_shards(model)
+    flat = torch.cat([p.detach().reshape(-1) for n, p in model.named_parameters() if n not in shards])
+    both = gather_along(flat, 0, model.mesh_groups).view(model.mesh_groups.model_size, -1)
+    return all(torch.equal(both[0], b) for b in both[1:])
+
+
+def ma_distances(got: dict, ref: dict, zero_tol: float, tol: float, truth: dict | None = None) -> dict:
+    """The step of the mesh against one process's: relative loss and norm,
+    and for the gradients and the state tensors the worst (distance /
+    bound, relative L2, bound, name).  The bound is ``tol``; in float32
+    (``truth``: one process's float64 step from the same inputs) the larger
+    of ``tol`` and ``TRAIN_GRAD_FACTOR`` times one process's own float32
+    distance to it.  Gradients that are zero in exact arithmetic (under
+    ``zero_tol`` of the norm in the reference) are held apart; so are, in
+    float64, the state tensors whose gradient has an element below Adam's
+    eps (bound ``MA_TINY64``)."""
+    rel = lambda a, b: (a.double() - b.double()).norm().item() / max(b.double().norm().item(), 1e-30)  # noqa: E731
+    norm = ref["grad_norm"]
+    zero = {k for k, g in ref["grads"].items() if g.double().norm().item() < zero_tol * norm}
+    tiny = set() if truth is not None else {
+        k for k, g in ref["grads"].items() if k not in zero and g.abs().min().item() < 1e-8}
+
+    def worst(part: str, keys, base: float) -> tuple:
+        out = (0.0, 0.0, base, "")
+        for k in keys:
+            d = rel(got[part][k], ref[part][k])
+            b = base if truth is None else max(base, TRAIN_GRAD_FACTOR * rel(ref[part][k], truth[part][k]))
+            out = max(out, (d / b, d, b, k))
+        return out
+
+    return {"loss": abs(got["loss"] - ref["loss"]) / abs(ref["loss"]),
+            "grad_norm": abs(got["grad_norm"] - norm) / norm,
+            "grad": worst("grads", [k for k in ref["grads"] if k not in zero], tol),
+            "state": worst("state", [k for k in ref["state"] if k not in zero | tiny], tol),
+            "state_tiny": worst("state", sorted(tiny), MA_TINY64), "zero": len(zero), "tiny": len(tiny),
+            "zero_worst": max((got["grads"][k].double().norm().item() / norm for k in zero), default=0.0),
+            "keys": got["state"].keys() == ref["state"].keys()
+            and all(got["state"][k].shape == v.shape for k, v in ref["state"].items())}
+
+
+@contextlib.contextmanager
+def counted_all_reduces():
+    """This process's ``dist.all_reduce`` calls inside the block, counted
+    in the list it yields."""
+    import torch.distributed as dist
+
+    real, calls = dist.all_reduce, [0]
+
+    def counted(*args, **kwargs):
+        calls[0] += 1
+        return real(*args, **kwargs)
+
+    dist.all_reduce = counted
+    try:
+        yield calls
+    finally:
+        dist.all_reduce = real
+
+
+def ma_worker(device, group=None) -> dict | None:
+    """One rank of phase model_axis's training on a 1x2 mesh: the CRNN step
+    in float64 and float32 and the CRAFT step in float64 on this rank's
+    slices; rank 0 then takes one process's step of each case and returns
+    the distances, ms a step, collectives a step and bytes."""
+    from lightly_ocr_tpu_torch.parallel.mesh import param_sharding_rules
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out, truth = {}, {}
+    for kind, dtype in (("crnn", torch.float64), ("crnn", torch.float32), ("craft", torch.float64)):
+        model, state, step, batch = dp_step(kind, dtype, device, group, inputs=ma_inputs)
+        full = ma_inputs(dtype)[1 if kind == "crnn" else 3]
+        rules = param_sharding_rules(full, group)
+        for k, v in model.state_dict().items():  # each rank holds its slices
+            assert v.shape[0] * (2 if rules[k] == 0 else 1) == full[k].shape[0], k
+        with counted_all_reduces() as calls:
+            state, m = step(state, batch)
+        got = ma_result(model, m, calls[0], state)
+        got["replicas_equal"] = ma_replicas_equal(model)
+        ms = None
+        if dtype == torch.float32:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(MA_STEPS):
+                state, m = step(state, batch)
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0) / MA_STEPS
+        del model, state, step, batch
+        if group.lead:
+            model, state, step, batch = dp_step(kind, dtype, device, None, inputs=ma_inputs)
+            state, m = step(state, batch)
+            ref = ma_result(model, m, 0, state)
+            ref_ms = None
+            if dtype == torch.float32:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(MA_STEPS):
+                    state, m = step(state, batch)
+                torch.cuda.synchronize()
+                ref_ms = 1e3 * (time.perf_counter() - t0) / MA_STEPS
+            f64 = dtype == torch.float64
+            dist = ma_distances(got, ref, CRAFT_ZERO64 if f64 else CRAFT_ZERO32, MA_TOL64 if f64 else MA_TOL32,
+                                None if f64 else truth[kind])
+            if f64:
+                truth[kind] = {"grads": ref["grads"], "state": ref["state"]}
+            out[(kind, str(dtype).split(".")[1])] = {
+                **dist, "ms": ms, "ref_ms": ref_ms,
+                "collectives": got["collectives"], "bytes": got["bytes"], "ref_bytes": ref["bytes"],
+                "replicas_equal": got["replicas_equal"]}
+            del model, state, step, batch, ref
+        del got
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out if group.lead else None
+
+
+def model_axis_training(smi: str) -> None:
+    """Phase model_axis (b) and (c): two gloo ranks on ``cuda:0`` as a 1x2
+    mesh (tensor parallelism), each step against one process's."""
+    from lightly_ocr_tpu_torch.parallel import make_mesh
+    from lightly_ocr_tpu_torch.parallel.launch import spawn
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh = make_mesh(1, 2, [torch.device("cuda", 0)] * 2)
+    t0 = time.perf_counter()
+    res = spawn(ma_worker, (), mesh)
+    log(f"model_axis training: a {mesh.shape} mesh of gloo ranks on cuda:0 "
+        f"({time.perf_counter() - t0:.2f} s with the processes' start)")
+    def worst(w: tuple) -> str:
+        return f"{w[1]:.3g} ({w[3]}; bound {w[2]:.3g})"
+
+    for (kind, dt), r in res.items():
+        log(f"  {kind} {dt} 1x2 vs one process: loss rel {r['loss']:.3g}, grad_norm rel {r['grad_norm']:.3g}, "
+            f"gradients max rel L2 {worst(r['grad'])}, state after the update {worst(r['state'])}"
+            + (f"; {r['tiny']} state tensor(s) with a gradient element below 1e-8: {worst(r['state_tiny'])}"
+               if dt == "float64" else "")
+            + f"; replicated tensors equal on both model ranks: {r['replicas_equal']}; {r['zero']} zero "
+            f"gradients, largest {r['zero_worst']:.3g} of the norm; {r['collectives']} collectives a step; "
+            f"bytes of parameters and optimizer state a rank {r['bytes']} vs one process {r['ref_bytes']} "
+            f"({r['bytes'] / r['ref_bytes']:.4f})"
+            + (f"; ms a step: 1x2 {r['ms']:.2f}, one process {r['ref_ms']:.2f}" if r["ms"] is not None else "")
+            + f" on {smi}")
+    for (kind, dt), r in res.items():
+        tol = MA_TOL64 if dt == "float64" else MA_TOL32
+        assert r["keys"], f"{kind} {dt}: the gathered state differs in keys or shapes"
+        assert r["loss"] <= tol and r["grad_norm"] <= tol, f"{kind} {dt}: the model-axis loss or norm differs"
+        assert max(r["grad"][0], r["state"][0], r["state_tiny"][0]) <= 1.0, \
+            f"{kind} {dt}: the model-axis step differs from one process's"
+        if dt == "float64":
+            assert r["zero_worst"] <= CRAFT_ZERO64, f"{kind}: a zero gradient is not zero"
+        assert r["replicas_equal"], f"{kind} {dt}: the model ranks' replicated tensors differ"
 
 
 def export_phase(smi: str) -> None:
@@ -2654,11 +2909,16 @@ def main() -> int:
     craft_phase(smi)
     log(f"phase craft: {time.perf_counter() - t0:.2f} s")
 
-    # -- phases 15-18: data parallelism, export, the host library, the profiler
+    # -- phases 15-19: data parallelism, the model axis, export, the host
+    # library, the profiler
     t0 = time.perf_counter()
     parallel_serving(e2e_cfg, det_sd, rec_sd, imgs, smi)
     parallel_training(smi)
     log(f"phase parallel: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    model_axis_serving(e2e_cfg, det_sd, rec_sd, imgs, smi)
+    model_axis_training(smi)
+    log(f"phase model_axis: {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
     export_phase(smi)
     log(f"phase export: {time.perf_counter() - t0:.2f} s")

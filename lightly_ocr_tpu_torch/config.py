@@ -4,9 +4,10 @@ The same frozen dataclass, field for field, as ``lightly_ocr_tpu/config.py``
 so one YAML file configures either package.  As in the JAX package,
 ``fused_stages`` and ``fused_impl`` pick the serving plan of
 ``serving/batch.py::BatchedOCR`` (overridden by ``LIGHTLY_OCR_ENABLE_FUSED``
-and ``LIGHTLY_OCR_FUSED_IMPL``); ``mesh_data`` (-1 = every visible device)
-is the CRNN trainer's number of data-parallel processes, and ``mesh_model``
-above 1 (tensor parallelism) is refused.  ``monolith`` and ``cpool_pool``
+and ``LIGHTLY_OCR_FUSED_IMPL``); ``mesh_data`` (-1 = every visible device
+that the model axis leaves) and ``mesh_model`` are the CRNN trainer's mesh:
+``mesh_data`` processes split the batch, and ``mesh_model`` ones a data
+index split the weights (tensor parallelism).  ``monolith`` and ``cpool_pool``
 choose among compiled XLA programs in the JAX package; the port runs one
 eager program that computes every form, so they are validated and have no
 effect.  ``compute_dtype``, ``param_dtype``, ``num_gpu`` and ``onnx_path``
@@ -87,7 +88,7 @@ class Config:
 
     # --- additions of the JAX package (no reference counterpart) ---
     mesh_data: int = -1
-    mesh_model: int = 1
+    mesh_model: int = 1  # ranks a data index that split the weights (tensor parallelism)
     compute_dtype: str = "bfloat16"
     param_dtype: str = "float32"
     quant_int8: bool = False

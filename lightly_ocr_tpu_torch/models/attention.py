@@ -28,16 +28,25 @@ class AttentionCell(nn.Module):
         self.score = nn.Linear(hidden, 1, bias=False)
         self.rnn = nn.LSTMCell(n_in + num_classes, hidden)
 
-    def step(self, feats, proj, h, c, prev, num_classes: int):
+    def lstm_cell(self):
+        """The LSTM cell as a function for one decode: a cell whose weights
+        are split over a model axis gathers them here, once for all the
+        steps (:class:`~lightly_ocr_tpu_torch.parallel.tensor.
+        ShardedLSTMCell`)."""
+        gathered = getattr(self.rnn, "gathered", None)
+        return self.rnn if gathered is None else gathered()
+
+    def step(self, feats, proj, h, c, prev, num_classes: int, rnn):
         """One decode step for states ``h``, ``c`` [..., H] attending over
         ``feats``/``proj`` [..., T, n_in/H] (broadcast over leading dims)
-        with previous tokens ``prev`` [...] -> new (h, c)."""
+        with previous tokens ``prev`` [...] -> new (h, c); ``rnn`` is
+        :meth:`lstm_cell`'s function."""
         e = self.score(torch.tanh(proj + self.h2h(h)[..., None, :]))
         context = (torch.softmax(e, dim=-2) * feats).sum(-2)
         onehot = F.one_hot(prev, num_classes).to(feats.dtype)
         lead = h.shape[:-1]
-        h, c = self.rnn(torch.cat([context, onehot], -1).reshape(-1, context.shape[-1] + num_classes),
-                        (h.reshape(-1, h.shape[-1]), c.reshape(-1, c.shape[-1])))
+        x = torch.cat([context, onehot], -1).reshape(-1, context.shape[-1] + num_classes)
+        h, c = rnn(x, (h.reshape(-1, h.shape[-1]), c.reshape(-1, c.shape[-1])))
         return h.reshape(*lead, -1), c.reshape(*lead, -1)
 
 
@@ -71,13 +80,13 @@ class Attention(nn.Module):
             return self._beam_decode(feats, int(beam_width), lm)
         cell = self.attention_cell
         B = feats.shape[0]
-        proj = cell.i2h(feats)
+        proj, rnn = cell.i2h(feats), cell.lstm_cell()
         h = feats.new_zeros(B, self.hidden)
         c = feats.new_zeros(B, self.hidden)
         prev = torch.zeros(B, dtype=torch.long, device=feats.device)  # [GO]
         out = []
         for _ in range(self.num_steps):
-            h, c = cell.step(feats, proj, h, c, prev, self.num_classes)
+            h, c = cell.step(feats, proj, h, c, prev, self.num_classes, rnn)
             logits = self.generator(h)
             if lm is not None:  # fused scores, emitted and fed back
                 logits = logits.float() + lm[prev]
@@ -90,12 +99,12 @@ class Attention(nn.Module):
             raise ValueError("lm fusion is inference-only")
         cell = self.attention_cell
         B = feats.shape[0]
-        proj = cell.i2h(feats)
+        proj, rnn = cell.i2h(feats), cell.lstm_cell()
         h = feats.new_zeros(B, self.hidden)
         c = feats.new_zeros(B, self.hidden)
         hs = []
         for s in range(self.num_steps):
-            h, c = cell.step(feats, proj, h, c, text[:, s].long(), self.num_classes)
+            h, c = cell.step(feats, proj, h, c, text[:, s].long(), self.num_classes, rnn)
             hs.append(h)
         return self.generator(torch.stack(hs, 1))
 
@@ -117,7 +126,7 @@ class Attention(nn.Module):
         C, S, H = self.num_classes, self.num_steps, self.hidden
         dev = feats.device
         feats1 = feats[:, None]  # [B, 1, T, n_in]
-        proj1 = cell.i2h(feats)[:, None]
+        proj1, rnn = cell.i2h(feats)[:, None], cell.lstm_cell()
         h = feats.new_zeros(B, W, H)
         c = feats.new_zeros(B, W, H)
         prev = torch.zeros((B, W), dtype=torch.long, device=dev)  # [GO]
@@ -127,7 +136,7 @@ class Attention(nn.Module):
         seqs = torch.zeros((B, W, S), dtype=torch.long, device=dev)
         eos_only = torch.where(torch.arange(C, device=dev) == _EOS, 0.0, _NEG)
         for s in range(S):
-            h2, c2 = cell.step(feats1, proj1, h, c, prev, C)
+            h2, c2 = cell.step(feats1, proj1, h, c, prev, C, rnn)
             logp = F.log_softmax(self.generator(h2).float(), dim=-1)  # [B, W, C]
             if lm is not None:
                 logp = logp + lm[prev]

@@ -9,12 +9,16 @@ insert the collectives.  Here the mesh is a grid of ``torch.device``\\ s:
 * serving (:class:`lightly_ocr_tpu_torch.serving.batch.BatchedOCR` with
   ``mesh=``) keeps one replica of each network on every data-axis device
   and runs each contiguous chunk of the batch on its own device;
-* training runs one process per data-axis device (:mod:`.launch`), each
-  computing on its rows of the global batch, with every statistic over the
-  batch reduced across processes (:mod:`.collectives`).
+* training runs one process per device of the mesh (:mod:`.launch`): the
+  processes of one data index share their rows of the global batch, with
+  every statistic over the batch reduced across the data axis
+  (:mod:`.collectives`); along the model axis (``model > 1``, GSPMD tensor
+  parallelism in the JAX package) each holds its slice of every tensor
+  that :func:`param_sharding_rules` splits (:mod:`.tensor`).
 
-A model axis (``model > 1``, GSPMD tensor parallelism in the JAX package)
-is not run by the port: :func:`refuse_model_axis` raises for it.
+A mesh's processes are its devices in row-major order: rank ``r`` sits at
+data index ``r // model`` and model index ``r % model``.
+:class:`MeshGroups` is one process's view of that grid.
 :func:`param_sharding_rules` keeps the JAX package's rule as a pure
 function of the state dict's names and shapes.
 """
@@ -29,8 +33,6 @@ import torch
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
-
-MODEL_AXIS_ITEM = "ROADMAP.md Queue 1, item 9: a model axis"
 
 
 @dataclass(frozen=True)
@@ -80,12 +82,71 @@ def make_mesh(data: int = -1, model: int = 1, devices: Sequence[Any] | None = No
     return Mesh(rows)
 
 
-def refuse_model_axis(model: int) -> None:
-    """Raise for a model axis above 1: the port runs data parallelism only."""
-    if model > 1:
-        raise ValueError(
-            f"a model axis of {model} (tensor parallelism) is not run by the "
-            f"PyTorch port; use model=1 ({MODEL_AXIS_ITEM})")
+@dataclass(frozen=True)
+class MeshGroups:
+    """One process's place in a ``(data, model)`` mesh of processes: its
+    **data group** (the ranks of its model index, over which the batch is
+    split), its **model group** (the ranks of its data index, over which
+    the sharded tensors are split) and its coordinates.  A group is
+    ``None`` where its axis has one process, so ``MeshGroups()`` is one
+    process alone and ``model == 1`` is today's data-parallel group."""
+
+    data: Any = None
+    model: Any = None
+    data_index: int = 0
+    model_index: int = 0
+    data_size: int = 1
+    model_size: int = 1
+
+    @property
+    def shape(self) -> dict[str, int]:
+        """The axis sizes, as :attr:`Mesh.shape` (what
+        :func:`param_sharding_rules` reads)."""
+        return {DATA_AXIS: self.data_size, MODEL_AXIS: self.model_size}
+
+    @property
+    def lead(self) -> bool:
+        """Whether this is rank 0 of the mesh (it logs and writes)."""
+        return self.data_index == 0 and self.model_index == 0
+
+
+def mesh_groups(group) -> MeshGroups:
+    """``group`` as a :class:`MeshGroups`: ``None`` (one process), a
+    ``torch.distributed`` process group (a data axis only), or a
+    :class:`MeshGroups`, returned as it is."""
+    if isinstance(group, MeshGroups):
+        return group
+    if group is None:
+        return MeshGroups()
+    import torch.distributed as dist
+
+    return MeshGroups(data=group, data_index=dist.get_rank(group),
+                      data_size=dist.get_world_size(group))
+
+
+def new_mesh_groups(data: int, model: int) -> MeshGroups:
+    """This process's :class:`MeshGroups` in a ``data x model`` mesh over
+    the default process group (world size ``data * model``).  Every rank
+    must call it: every rank creates every subgroup, in the same order
+    (``dist.new_group`` waits for all of them).  With ``model == 1`` the
+    data group is the whole world."""
+    import torch.distributed as dist
+
+    world, rank = dist.get_world_size(), dist.get_rank()
+    if data * model != world:
+        raise ValueError(f"mesh {data}x{model} != {world} processes")
+    if model == 1:
+        return mesh_groups(dist.group.WORLD)
+    i, j = divmod(rank, model)
+    data_group = model_group = None
+    if data > 1:
+        for jj in range(model):
+            g = dist.new_group([ii * model + jj for ii in range(data)])
+            data_group = g if jj == j else data_group
+    for ii in range(data):
+        g = dist.new_group([ii * model + jj for jj in range(model)])
+        model_group = g if ii == i else model_group
+    return MeshGroups(data_group, model_group, i, j, data, model)
 
 
 def shard_batch(batch: Any, mesh: Mesh) -> list:
@@ -138,7 +199,8 @@ def param_sharding_rules(state_dict: Mapping[str, torch.Tensor], mesh: Mesh) -> 
       sides) -> the gate dimension, 0;
     * biases and BatchNorm -> None (replicated).
 
-    A tensor whose dimension the axis does not divide, or that is under
+    ``mesh`` is a :class:`Mesh` or a :class:`MeshGroups` (its ``shape``
+    is read).  A tensor whose dimension the axis does not divide, or that is under
     twice the axis, stays replicated; with ``model == 1`` every tensor does."""
     model_size = mesh.shape[MODEL_AXIS]
 

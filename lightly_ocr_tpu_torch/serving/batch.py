@@ -52,13 +52,15 @@ no effect here (one eager program computes every form).
 The canvas geometry picks among these per dispatch, as in the JAX package;
 once a kernel is picked, a CUDA tensor launches it or the call raises.
 
-``mesh`` (:func:`lightly_ocr_tpu_torch.parallel.make_mesh`, a data axis
-only) keeps one replica of both networks on each data-axis device and
-splits every batch into contiguous chunks, one a replica, each run to the
-end of the program on its own device, CUDA stream and thread (one pool of
-threads for the object's life); the outputs come back on the first device
-in batch order (the JAX package's ``shard_map`` over the
-data axis, the reference's ``nn.DataParallel``).
+``mesh`` (:func:`lightly_ocr_tpu_torch.parallel.make_mesh`) keeps one
+replica of both networks on each data-axis device and splits every batch
+into contiguous chunks, one a replica, each run to the end of the program
+on its own device, CUDA stream and thread (one pool of threads, until
+:meth:`BatchedOCR.close`); the outputs come back on the first device in
+batch order (the JAX package's ``shard_map`` over the data axis, the
+reference's ``nn.DataParallel``).  A model axis adds no work: the JAX
+program's weights are replicated over it and its devices compute the same
+rows again, of which one copy is kept.
 
 ``quant_int8`` builds both networks with w8a8 ``QuantConv`` layers.
 """
@@ -100,7 +102,7 @@ from lightly_ocr_tpu_torch.ops.stem import (
     stem_params,
     stem_supported,
 )
-from lightly_ocr_tpu_torch.parallel.mesh import MODEL_AXIS, refuse_model_axis, shard_batch
+from lightly_ocr_tpu_torch.parallel.mesh import shard_batch
 from lightly_ocr_tpu_torch.text.converters import build_converter
 
 _LUMA = np.asarray(LUMA, np.float32)
@@ -172,7 +174,6 @@ class BatchedOCR:
         self.cfg = cfg
         self.mesh = mesh
         if mesh is not None:
-            refuse_model_axis(mesh.shape[MODEL_AXIS])
             device = mesh.data_devices[0]
         self.device = resolve_device(device)
         self.dtype = dtype
@@ -238,6 +239,13 @@ class BatchedOCR:
                 if r.device.type == "cuda":
                     r.stream = torch.cuda.Stream(r.device)
             self.pool = ThreadPoolExecutor(len(self.replicas), thread_name_prefix="replica")
+
+    def close(self) -> None:
+        """Shut down a mesh's replica threads (a mesh object serves no call
+        after it); nothing to do without a mesh."""
+        if self.pool is not None:
+            self.pool.shutdown(wait=True)
+            self.pool = None
 
     def detector_scores(self, canvases: torch.Tensor):
         """[B, H, W, 3] normalized canvases -> (region, affinity) f32

@@ -35,7 +35,10 @@ the default raises.  ``--data-parallel`` trains data-parallel over every
 visible device, one process each (:func:`lightly_ocr_tpu_torch.parallel.
 launch.spawn`; NCCL), and under ``torchrun`` over its processes: the JAX
 package's mesh step over the global batch (:func:`make_craft_train_step`
-with ``group``).
+with ``group``).  As the JAX CLI's ``make_mesh()``, the CLI's mesh has a
+model axis of 1; :func:`train_craft` takes a
+:class:`~lightly_ocr_tpu_torch.parallel.mesh.MeshGroups` with a model axis
+as the JAX ``train_craft(mesh=...)`` takes any mesh.
 """
 from __future__ import annotations
 
@@ -51,13 +54,14 @@ from lightly_ocr_tpu_torch.parallel.collectives import (
     all_reduce_grads_,
     global_min_max,
     global_sum,
-    group_rank,
     group_size,
+    sync_replicated_grads_,
 )
 from lightly_ocr_tpu_torch.parallel.launch import backend_for, from_torchrun, spawn
-from lightly_ocr_tpu_torch.parallel.mesh import launched_by_torchrun, visible_devices
+from lightly_ocr_tpu_torch.parallel.mesh import launched_by_torchrun, mesh_groups, visible_devices
+from lightly_ocr_tpu_torch.parallel.tensor import shard_module, sharded_mask
 from lightly_ocr_tpu_torch.serving.batch import resolve_device
-from lightly_ocr_tpu_torch.train.train_step import TrainState, clip_by_global_norm_
+from lightly_ocr_tpu_torch.train.train_step import TrainState, clip_by_global_norm_, global_norm
 
 # ---------------------------------------------------------------------------
 # Synthetic data with exact gaussian supervision (numpy, as the JAX package)
@@ -248,20 +252,33 @@ def frozen_mask(model: torch.nn.Module, freeze: Sequence[str] = ()) -> list[bool
 
 @torch.no_grad()
 def apply_craft_update(optimizer: torch.optim.Optimizer, params: Sequence[torch.Tensor],
-                       frozen: Sequence[bool], clip: float = 5.0, group=None) -> torch.Tensor:
+                       frozen: Sequence[bool], clip: float = 5.0, group=None,
+                       sharded: Sequence[bool] | None = None) -> torch.Tensor:
     """The JAX package's optimizer chain on the gradients in ``.grad``:
-    (with ``group``) the gradients summed over the processes, frozen
-    gradients zeroed (out of the clip's norm), optax's global-norm clip,
-    then the step.  Returns the global norm of the raw gradients, frozen
-    ones included (the JAX step's ``grad_norm``).  No host sync."""
+    (with ``group``, a data group) the gradients summed over the processes,
+    frozen gradients zeroed (out of the clip's norm), optax's global-norm
+    clip, then the step.  Returns the global norm of the raw gradients,
+    frozen ones included (the JAX step's ``grad_norm``).  ``sharded`` marks
+    the slices of a model axis, ``group`` then a
+    :class:`~lightly_ocr_tpu_torch.parallel.mesh.MeshGroups` whose model
+    group the norms sum them over (:func:`~lightly_ocr_tpu_torch.train.
+    train_step.global_norm`); the replicated tensors take model index 0's
+    gradients.  No host sync."""
+    groups = mesh_groups(group)
     grads = [p.grad for p in params]
-    all_reduce_grads_(grads, group)
+    all_reduce_grads_(grads, groups.data)
+    if sharded is not None:
+        sync_replicated_grads_([g for g, s in zip(grads, sharded) if not s], groups)
+
+    def norm_of(gs):
+        return global_norm(gs, sharded, groups.model)
+
+    norm = norm_of(grads)
     if any(frozen):
-        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
         torch._foreach_zero_([g for g, f in zip(grads, frozen) if f])
-        clip_by_global_norm_(grads, clip)
+        clip_by_global_norm_(grads, clip, norm_of(grads))
     else:
-        norm = clip_by_global_norm_(grads, clip)
+        clip_by_global_norm_(grads, clip, norm)
     optimizer.step()
     return norm
 
@@ -314,6 +331,7 @@ def init_craft_state(
     device="cuda",
     init_backbone=None,
     freeze: Sequence[str] = (),
+    group=None,
 ) -> tuple[VGG_UNet, TrainState]:
     """A float32 :class:`VGG_UNet` with flax's seeded training
     initialisation (:func:`init_train_params`), slices 1-4 from
@@ -321,13 +339,16 @@ def init_craft_state(
     ``train()`` on ``device`` (the card unless the caller asks for the CPU;
     raises without one), and its Adam at step 0.  The optimizer holds every
     parameter: ``freeze`` (checked here against the model's module names)
-    is applied by the step that :func:`make_craft_train_step` makes."""
+    is applied by the step that :func:`make_craft_train_step` makes.  With
+    a model axis in ``group`` (a :class:`~lightly_ocr_tpu_torch.parallel.
+    mesh.MeshGroups`) the model holds this rank's slices."""
     device = resolve_device(device)
     model = init_train_params(VGG_UNet(), torch.Generator().manual_seed(int(seed)))
     frozen_mask(model, freeze)
     if init_backbone is not None:
         load_torchvision_backbone(model, init_backbone)
     model.to(device).train()
+    shard_module(model, mesh_groups(group))
     return model, TrainState(model, make_craft_optimizer(model.parameters(), lr))
 
 
@@ -344,23 +365,27 @@ def make_craft_train_step(
     """``train_step(state, batch) -> (state, {"loss", "grad_norm"})``: one
     update of ``state`` in place (its step + 1) on a batch of tensors on the
     model's device; the metrics stay on the device.  ``group`` makes it one
-    step of the data-parallel program over the processes' rows of the
-    global batch (as :func:`~lightly_ocr_tpu_torch.train.train_step.
-    make_train_step`): BatchNorm, OHEM and both normalisers over the global
-    batch, the gradients summed before the freeze and the clip, ``loss``
-    the global loss."""
+    step of the parallel program (as :func:`~lightly_ocr_tpu_torch.train.
+    train_step.make_train_step`): over the data group's rows of the global
+    batch, BatchNorm, OHEM and both normalisers over the global batch, the
+    gradients summed before the freeze and the clip, ``loss`` the global
+    loss; over a model group (``model`` sharded), the norms over the slices
+    of every rank."""
     params = list(model.parameters())
     frozen = frozen_mask(model, freeze)
-    sync_batch_norm(model, group)
+    sharded = sharded_mask(model)
+    groups = mesh_groups(group)
+    data = groups.data
+    sync_batch_norm(model, data)
 
     def train_step(state: TrainState, batch: Mapping[str, torch.Tensor]):
         model.train()
         state.optimizer.zero_grad(set_to_none=True)
-        loss = craft_loss(model, batch, group)
+        loss = craft_loss(model, batch, data)
         loss.backward()
-        norm = apply_craft_update(state.optimizer, params, frozen, clip, group)
-        if group is not None:
-            loss = global_sum(loss.detach(), group)
+        norm = apply_craft_update(state.optimizer, params, frozen, clip, groups, sharded)
+        if data is not None:
+            loss = global_sum(loss.detach(), data)
         state.step += 1
         return state, {"loss": loss.detach(), "grad_norm": norm}
 
@@ -395,15 +420,20 @@ def train_craft(
     steps on its contiguous share of them (``batch`` must divide by the
     processes; from ``records`` it decodes only those rows, while every
     process synthesizes the whole batch to keep the generator in step);
-    rank 0 alone logs and writes the checkpoint."""
+    rank 0 alone logs and writes the checkpoint.  A
+    :class:`~lightly_ocr_tpu_torch.parallel.mesh.MeshGroups` with a model
+    axis splits the batch by data index and the weights over the model
+    group (its ranks gather the checkpoint together)."""
+    groups = mesh_groups(group)
     rng = np.random.default_rng(seed)
-    model, state = init_craft_state(seed, lr, device, init_backbone, freeze)
+    model, state = init_craft_state(seed, lr, device, init_backbone, freeze, groups)
     dev = next(model.parameters()).device
-    step_fn = make_craft_train_step(model, freeze=freeze, group=group)
-    rank, per = group_rank(group), batch // group_size(group)
-    if per * group_size(group) != batch:
-        raise ValueError(f"batch {batch} does not split over {group_size(group)} processes")
-    lead = rank == 0
+    step_fn = make_craft_train_step(model, freeze=freeze, group=groups)
+    rank, n = groups.data_index, groups.data_size
+    per = batch // n
+    if per * n != batch:
+        raise ValueError(f"batch {batch} does not split over {n} processes")
+    lead = groups.lead
     data_iter = None
     if records is not None:
         from lightly_ocr_tpu_torch.train.pseudo_labels import batches_from_records
@@ -422,7 +452,7 @@ def train_craft(
         if lead and log_every and (i + 1) % log_every == 0:
             log_fn(f"craft step {i + 1}/{num_steps} loss {losses[-1].item():.5f} "
                    f"gnorm {metrics['grad_norm'].item():.3f}")
-    if checkpoint_dir and lead:
+    if checkpoint_dir and rank == 0:  # the model group of data index 0
         from lightly_ocr_tpu_torch.utils.checkpoint import save_checkpoint
 
         save_checkpoint(checkpoint_dir, state.step, state)
@@ -477,11 +507,12 @@ def main(argv: Sequence[str] | None = None) -> int:
 def _craft_rank(kw: dict, device, group=None) -> list[float] | None:
     """One process of :func:`main`'s run: :func:`train_craft` on ``device``;
     rank 0 returns the losses."""
+    lead = mesh_groups(group).lead
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "host"
-    if group_rank(group) == 0:
+    if lead:
         print(f"craft training on device {device} ({name})", flush=True)
     _, _, losses = train_craft(**kw, device=device, group=group)
-    return losses if group_rank(group) == 0 else None
+    return losses if lead else None
 
 
 if __name__ == "__main__":

@@ -46,7 +46,10 @@ from lightly_ocr_tpu_torch.parallel.collectives import (
     global_sum,
     group_size,
     is_split,
+    sync_replicated_grads_,
 )
+from lightly_ocr_tpu_torch.parallel.mesh import mesh_groups
+from lightly_ocr_tpu_torch.parallel.tensor import shard_module, sharded_mask
 from lightly_ocr_tpu_torch.serving.batch import resolve_device
 
 
@@ -67,11 +70,32 @@ def make_optimizer(cfg: Config, params) -> torch.optim.Optimizer:
 
 
 @torch.no_grad()
-def clip_by_global_norm_(grads: list[torch.Tensor], max_norm: float) -> torch.Tensor:
-    """optax's ``clip_by_global_norm`` in place: where the global norm is
-    ``>= max_norm``, each gradient becomes ``g / norm * max_norm``.  Returns
-    the norm before the clip.  No host sync."""
-    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+def global_norm(grads: list[torch.Tensor], sharded=None, model_group=None) -> torch.Tensor:
+    """The global L2 norm of ``grads``.  Where ``sharded[i]`` marks a slice
+    of a tensor split over the model axis (:func:`~lightly_ocr_tpu_torch.
+    parallel.tensor.sharded_mask`), its squares are summed over
+    ``model_group`` and each replicated gradient counts once: the norm of
+    one process's gradients.  No host sync."""
+    norms = torch._foreach_norm(grads)
+    if model_group is None or not any(sharded or ()):
+        return torch.linalg.vector_norm(torch.stack(norms))
+
+    def squares(keep: bool) -> torch.Tensor:
+        part = [n for n, s in zip(norms, sharded) if s == keep]
+        return torch.stack(part).square().sum() if part else norms[0].new_zeros(())
+
+    return torch.sqrt(squares(False) + global_sum(squares(True), model_group))
+
+
+@torch.no_grad()
+def clip_by_global_norm_(grads: list[torch.Tensor], max_norm: float,
+                         norm: torch.Tensor | None = None) -> torch.Tensor:
+    """optax's ``clip_by_global_norm`` in place: where the global norm
+    (``norm``, else :func:`global_norm` of ``grads``) is ``>= max_norm``,
+    each gradient becomes ``g / norm * max_norm``.  Returns the norm before
+    the clip.  No host sync."""
+    if norm is None:
+        norm = global_norm(grads)
     keep = norm < max_norm
     torch._foreach_div_(grads, torch.where(keep, 1.0, norm))
     torch._foreach_mul_(grads, torch.where(keep, 1.0, float(max_norm)))
@@ -85,11 +109,14 @@ def flatten_lstms(model: torch.nn.Module) -> None:
             m.flatten_parameters()
 
 
-def init_train_state(cfg: Config, seed: int, device="cuda") -> tuple[CRNNet, TrainState]:
+def init_train_state(cfg: Config, seed: int, device="cuda", group=None) -> tuple[CRNNet, TrainState]:
     """A :class:`CRNNet` with the seeded training initialisation
     (:func:`init_train_params`), in training mode on ``device`` (the card
     unless the caller asks for the CPU; raises without one), and its
-    optimizer at step 0."""
+    optimizer at step 0.  With a model axis in ``group`` (a
+    :class:`~lightly_ocr_tpu_torch.parallel.mesh.MeshGroups`) the model
+    holds this rank's slices (:func:`~lightly_ocr_tpu_torch.parallel.
+    tensor.shard_module`) and the optimizer steps on them."""
     if cfg.quant_int8:
         # the int8 rounding has zero gradient: the quantized convs would
         # silently stop learning.  int8 is a serving mode only.
@@ -101,6 +128,7 @@ def init_train_state(cfg: Config, seed: int, device="cuda") -> tuple[CRNNet, Tra
     device = resolve_device(device)
     model = init_train_params(CRNNet(cfg), torch.Generator().manual_seed(int(seed)))
     model.to(device).train()
+    shard_module(model, mesh_groups(group))
     flatten_lstms(model)
     return model, TrainState(model, make_optimizer(cfg, model.parameters()))
 
@@ -148,18 +176,28 @@ def make_train_step(model: CRNNet, cfg: Config, group=None) -> Callable:
     optimizer update of ``state`` in place (its step + 1); the metrics stay
     on the device.
 
-    ``group`` (a ``torch.distributed`` process group) makes it one step of
-    the data-parallel program: each process passes its rows of the global
-    batch, BatchNorm normalises over the global batch
+    ``group`` (a ``torch.distributed`` process group, or a
+    :class:`~lightly_ocr_tpu_torch.parallel.mesh.MeshGroups`) makes it one
+    step of the parallel program.  Over the data group each process passes
+    its rows of the global batch, BatchNorm normalises over the global batch
     (:func:`~lightly_ocr_tpu_torch.models.layers.sync_batch_norm`), the
     losses are the processes' shares of the global one
     (:func:`loss_fn`), and the gradients are summed over the processes
     before the clip, so every process applies the same update, that of the
     JAX package's step over the global batch; ``loss`` is the global loss.
-    With one process in ``group`` the step is the single-device one, bit for
+    Over a model group (``model`` sharded by :func:`init_train_state`) the
+    replicated tensors take model index 0's gradients (so the replicas
+    stay equal bit for bit), the clip's norm counts each slice's squares
+    over the group and each replicated gradient once, and the optimizer
+    steps on the slices.  With
+    one process in ``group`` the step is the single-device one, bit for
     bit."""
     accum = max(1, int(cfg.grad_accum))
+    groups = mesh_groups(group)
+    group = groups.data
     sync_batch_norm(model, group)
+    params = list(model.parameters())
+    sharded = sharded_mask(model)
 
     def train_step(state: TrainState, batch: dict):
         model.train()
@@ -175,13 +213,16 @@ def make_train_step(model: CRNNet, cfg: Config, group=None) -> Callable:
                 micro.backward()  # .grad sums the micro-batches' gradients
                 losses.append(micro.detach())
             loss = torch.stack(losses).sum() / accum
-        grads = [p.grad for p in model.parameters() if p.grad is not None]
+        kept = [i for i, p in enumerate(params) if p.grad is not None]
+        grads = [params[i].grad for i in kept]
         if group is not None:
             all_reduce_grads_(grads, group)
             loss = global_sum(loss.detach(), group)
+        sync_replicated_grads_([params[i].grad for i in kept if not sharded[i]], groups)
         if accum > 1:
             torch._foreach_div_(grads, float(accum))
-        norm = clip_by_global_norm_(grads, cfg.grad_clip)
+        norm = clip_by_global_norm_(
+            grads, cfg.grad_clip, global_norm(grads, [sharded[i] for i in kept], groups.model))
         state.optimizer.step()
         state.step += 1
         return state, {"loss": loss.detach(), "grad_norm": norm}

@@ -22,17 +22,21 @@ It runs on the card unless asked otherwise (``device="cpu"``,
 ``--device cpu``); without a CUDA device the default raises.  As the JAX
 trainer builds a ``(mesh_data, mesh_model)`` mesh over every device, the
 CLI builds one over the visible devices of ``--device``'s type (each CUDA
-device, or the one CPU): ``mesh_data`` (-1 = all of them) processes, one a
-device, started by :func:`lightly_ocr_tpu_torch.parallel.launch.spawn`
-(NCCL), or the processes of ``torchrun``.  Each process takes its
-contiguous share of every global batch of ``batch_size`` rows (all draw
-the same batches from the seed) and the step is the JAX package's mesh
-step over the global batch (:func:`~lightly_ocr_tpu_torch.train.
-train_step.make_train_step` with ``group``); rank 0 alone evaluates, logs
-and writes checkpoints, and every rank resumes from ``saved_model_path``.
-``mesh_model`` > 1 raises.  ``--model CRAFT`` trains the detector: the
-other arguments go to :func:`lightly_ocr_tpu_torch.train.craft.main` (with
-``--device``).
+device, or the one CPU; ``mesh_data`` -1 = all that the model axis
+leaves, and a model axis that does not divide them raises the JAX
+package's error): one process a device of the mesh, started by
+:func:`lightly_ocr_tpu_torch.parallel.launch.spawn` (NCCL), or the
+``data * model`` processes of ``torchrun``.  The processes of one data
+index take its contiguous share of every global batch of ``batch_size``
+rows (all draw the same batches from the seed), and those of one model
+index hold their slices of the sharded weights
+(:mod:`lightly_ocr_tpu_torch.parallel.tensor`); the step is the JAX
+package's mesh step over the global batch (:func:`~lightly_ocr_tpu_torch.
+train.train_step.make_train_step` with ``group``).  The model group of data
+index 0 evaluates and gathers the checkpoints together; rank 0 alone logs
+and writes them, and every rank resumes from ``saved_model_path``.
+``--model CRAFT`` trains the detector: the other arguments go to
+:func:`lightly_ocr_tpu_torch.train.craft.main` (with ``--device``).
 """
 from __future__ import annotations
 
@@ -48,13 +52,12 @@ import torch
 from lightly_ocr_tpu_torch.config import Config, load_config
 from lightly_ocr_tpu_torch.data.loader import DataLoader
 from lightly_ocr_tpu_torch.data.records import open_dataset
-from lightly_ocr_tpu_torch.parallel.collectives import group_rank, group_size
+from lightly_ocr_tpu_torch.parallel.collectives import any_rank
 from lightly_ocr_tpu_torch.parallel.launch import backend_for, from_torchrun, spawn
 from lightly_ocr_tpu_torch.parallel.mesh import (
-    DATA_AXIS,
     launched_by_torchrun,
     make_mesh,
-    refuse_model_axis,
+    mesh_groups,
     visible_devices,
 )
 from lightly_ocr_tpu_torch.serving.batch import resolve_device
@@ -105,29 +108,33 @@ def encode_batch(cfg: Config, converter, images: np.ndarray, labels: list[str], 
 
 class Trainer:
     """``group`` (a ``torch.distributed`` process group, one process per
-    device) makes this process one rank of the data-parallel run (module
-    docstring); ``None`` trains on ``device`` alone."""
+    device, or a :class:`~lightly_ocr_tpu_torch.parallel.mesh.MeshGroups`)
+    makes this process one rank of the parallel run (module docstring);
+    ``None`` trains on ``device`` alone."""
 
     def __init__(self, cfg: Config, device=None, group=None):
         self.cfg = cfg
         self.device = resolve_device("cuda" if device is None else device)
-        self.group, self.rank, world = group, group_rank(group), group_size(group)
-        self.lead = self.rank == 0
+        self.groups = groups = mesh_groups(group)
+        self.rank, world = groups.data_index, groups.data_size
+        self.lead = groups.lead
+        self.evaluates = self.rank == 0  # the model group of data index 0
         self.per_rank = cfg.batch_size // world
         if self.per_rank * world != cfg.batch_size:
             raise ValueError(f"batch_size {cfg.batch_size} does not split over {world} processes")
         # this process's rows of each global batch (build_loaders(rows=...))
         self.rows = slice(self.rank * self.per_rank, (self.rank + 1) * self.per_rank)
         self.converter = build_converter(cfg.prediction, cfg.character)
-        self.model, self.state = init_train_state(cfg, cfg.seeds, self.device)
-        self.train_step = make_train_step(self.model, cfg, group)
+        self.model, self.state = init_train_state(cfg, cfg.seeds, self.device, groups)
+        self.train_step = make_train_step(self.model, cfg, groups)
         self.eval_step = make_eval_step(self.model, cfg)
         if self.lead:
             os.makedirs(cfg.log_dir, exist_ok=True)
         self.best_acc = -1.0
         name = torch.cuda.get_device_name(self.device) if self.device.type == "cuda" else "host"
-        print(f"training on device {self.device} ({name})"
-              + (f", rank {self.rank} of {world}" if group is not None else ""), flush=True)
+        place = (f", data rank {self.rank} of {world}" if group is not None else "") + (
+            f", model rank {groups.model_index} of {groups.model_size}" if groups.model_size > 1 else "")
+        print(f"training on device {self.device} ({name}){place}", flush=True)
 
     # ------------------------------------------------------------------
     def _log(self, fname: str, text: str) -> None:
@@ -250,17 +257,18 @@ class Trainer:
                 avg_loss.add(metrics["loss"].item())
                 i += 1
 
-                if self.lead and i % cfg.val_interval == 0:
+                if self.evaluates and i % cfg.val_interval == 0:
                     ev = self.evaluate(val_loader)
                     if ev["accuracy"] > self.best_acc:
                         self.best_acc = ev["accuracy"]
-                        if record_best(cfg.log_dir, i, ev["accuracy"]):
+                        best = self.lead and record_best(cfg.log_dir, i, ev["accuracy"])
+                        if any_rank(best, self.groups.model, self.device):
                             save_checkpoint(os.path.join(cfg.log_dir, "best_acc"),
                                             i, self.state)
                     self.log_eval(i, avg_loss.val(), ev, time.time() - start)
                     avg_loss.reset()
 
-                if self.lead and i % cfg.save_interval == 0:
+                if self.evaluates and i % cfg.save_interval == 0:
                     save_checkpoint(os.path.join(cfg.log_dir, "checkpoints"), i, self.state)
                 if i >= cfg.num_iters:
                     if self.lead:
@@ -321,16 +329,16 @@ def main(argv: Sequence[str] | None = None) -> int:
     if overrides:
         cfg = dataclasses.replace(cfg, **overrides)
     device = resolve_device(args.device)
-    refuse_model_axis(cfg.mesh_model)
     if launched_by_torchrun():
-        device, group = from_torchrun(device)
+        device, group = from_torchrun(device, cfg.mesh_model)
         train_rank(cfg, device=device, group=group)
         return 0
     mesh = make_mesh(cfg.mesh_data, cfg.mesh_model, visible_devices(device))
-    if mesh.shape[DATA_AXIS] > 1:
-        print(f"training data-parallel on {mesh.shape[DATA_AXIS]} devices "
-              f"({backend_for(mesh.data_devices)})", flush=True)
-        spawn(train_rank, (cfg,), mesh.data_devices)
+    devices = [d for row in mesh.devices for d in row]
+    if len(devices) > 1:
+        print(f"training on a {mesh.shape} mesh of {len(devices)} devices "
+              f"({backend_for(devices)})", flush=True)
+        spawn(train_rank, (cfg,), mesh)
     else:
         train_rank(cfg, device=device)
     return 0
@@ -338,7 +346,8 @@ def main(argv: Sequence[str] | None = None) -> int:
 
 def train_rank(cfg: Config, device, group=None) -> None:
     """One process of a training run: a :class:`Trainer` on ``device`` (a
-    rank of ``group``, if given) fitted on the loaders of ``cfg``."""
+    rank of ``group``, a process group or a ``MeshGroups``, if given)
+    fitted on the loaders of ``cfg``."""
     trainer = Trainer(cfg, device=device, group=group)
     train_loader, val_loader = build_loaders(cfg, rows=trainer.rows)
     trainer.fit(train_loader, val_loader)

@@ -9,6 +9,13 @@ replaces the old one safely (renamed aside, the new one saved, then the
 old one deleted; a save that fails puts the old one back), and the
 optimizer state and the step are kept, which the reference's bare
 ``torch.save(state_dict)`` files (``ocr/train/crnn.py:300-302``) dropped.
+
+A model sharded over a model axis (:func:`~lightly_ocr_tpu_torch.parallel.
+tensor.shard_module`) is saved whole: every rank of its model group calls
+:func:`save_checkpoint`, which gathers the full model and optimizer state
+(the file a one-process run writes), and model index 0 writes it.
+:func:`restore_checkpoint` cuts a full file to the state's slices, so a
+checkpoint moves between model axes of any size.
 """
 from __future__ import annotations
 
@@ -17,6 +24,14 @@ import os
 import shutil
 
 import torch
+
+from lightly_ocr_tpu_torch.parallel.tensor import (
+    full_optimizer_state,
+    full_state_dict,
+    model_shards,
+    shard_optimizer_state,
+    shard_state_dict,
+)
 
 STATE_FILE = "state.pt"
 
@@ -35,7 +50,14 @@ def _steps(root: str) -> list[int]:
 def save_checkpoint(directory: str, step: int, state, max_to_keep: int = 5) -> None:
     """Save ``state`` (a :class:`~lightly_ocr_tpu_torch.train.train_step.
     TrainState`) as ``step``.  The file is written into ``<step>.tmp`` and
-    renamed into place, so a step directory is always whole."""
+    renamed into place, so a step directory is always whole.  A sharded
+    model's ranks call it together (module docstring); only model index 0
+    writes."""
+    payload = {"model": full_state_dict(state.model),
+               "optimizer": full_optimizer_state(state.optimizer, state.model),
+               "step": int(step)}
+    if model_shards(state.model) and state.model.mesh_groups.model_index != 0:
+        return
     root = os.path.abspath(directory)
     os.makedirs(root, exist_ok=True)
     target = os.path.join(root, str(step))
@@ -50,9 +72,7 @@ def save_checkpoint(directory: str, step: int, state, max_to_keep: int = 5) -> N
         if os.path.exists(tmp):
             shutil.rmtree(tmp)
         os.makedirs(tmp)
-        torch.save({"model": state.model.state_dict(),
-                    "optimizer": state.optimizer.state_dict(),
-                    "step": int(step)}, os.path.join(tmp, STATE_FILE))
+        torch.save(payload, os.path.join(tmp, STATE_FILE))
         os.rename(tmp, target)
     except BaseException:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -82,10 +102,12 @@ def load_state_file(directory: str, step: int | None = None) -> tuple[dict, int]
 
 def restore_checkpoint(directory: str, state, step: int | None = None):
     """Load a checkpoint into ``state`` (its model and optimizer, on their
-    devices) and set its step; returns (state, step)."""
+    devices; a sharded model takes its slices) and set its step; returns
+    (state, step)."""
     saved, step = load_state_file(directory, step)
-    state.model.load_state_dict(saved["model"], strict=True)
-    state.optimizer.load_state_dict(saved["optimizer"])
+    state.model.load_state_dict(shard_state_dict(state.model, saved["model"]), strict=True)
+    state.optimizer.load_state_dict(
+        shard_optimizer_state(state.optimizer, state.model, saved["optimizer"]))
     state.step = int(saved["step"])
     return state, step
 

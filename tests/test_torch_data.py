@@ -394,7 +394,8 @@ def test_trainer_cli(words, tmp_path, monkeypatch):
     ``--device`` it wants the card; ``--model CRAFT`` goes to the detector's
     trainer (its ``--data-parallel`` on the CPU, which has one device, trains
     in this process), and a CRAFT flag is refused without it; a model axis
-    (``mesh_model`` 2) is refused."""
+    (``mesh_model`` 2) that the one CPU device cannot hold raises the JAX
+    package's ``make_mesh`` error."""
     cfg_path = tmp_path / "tiny.json"
     cfg_path.write_text(json.dumps({**TINY, "prediction": "CTC", "transform": "None",
                                     "val_interval": 2, "save_interval": 2, "max_iter": 1,
@@ -416,7 +417,7 @@ def test_trainer_cli(words, tmp_path, monkeypatch):
                  "--batch", "1", "--height", "32", "--width", "32", "--log-every", "0"]) == 0
     model_axis = tmp_path / "model_axis.json"
     model_axis.write_text(json.dumps({**TINY, "mesh_model": 2}))
-    with pytest.raises(ValueError, match="ROADMAP.md Queue 1, item 9"):
+    with pytest.raises(ValueError, match="model axis 2 must divide device count 1"):
         main(["--config", str(model_axis), "--device", "cpu"])
     with pytest.raises(SystemExit):
         main(["--config", str(cfg_path), "--num-steps", "2", "--device", "cpu"])

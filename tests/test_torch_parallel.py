@@ -3,8 +3,9 @@
 * ``make_mesh``: the JAX function's sizes and errors on the same inputs;
 * ``param_sharding_rules``: the dimension each of the JAX rules splits,
   tensor for tensor, on the same model's tensors;
-* ``BatchedOCR(mesh=...)`` over two CPU replicas (one thread each) equals
-  the unsharded port call exactly (the same per-sample arithmetic), and the
+* ``BatchedOCR(mesh=...)`` over two CPU replicas (one thread each), and
+  over a 2x2 mesh with a model axis, equals the unsharded port call exactly
+  (the same per-sample arithmetic), and the
   JAX ``BatchedOCR`` over a two-device mesh of conftest's eight CPU
   devices: valid boxes equal, rects within 1 px, decoded indices equal and
   confidences within 1e-4 (float32; both run the plain detector, the JAX
@@ -172,6 +173,7 @@ def test_mesh_equals_unsharded(serving, stages, dtype):
     plain = BatchedOCR(cfg, serving["det"], serving["rec"], 4, dtype, device="cpu")
     assert len(sharded.replicas) == 2 and sharded.replicas[1].det_net is not sharded.det_net
     got, want = sharded(*_args(serving)), plain(*_args(serving))
+    sharded.close()
     assert want["valid"].any()
     for k in want:
         assert torch.equal(got[k], want[k]), k
@@ -186,6 +188,7 @@ def test_mesh_equals_jax_batched_ocr(serving):
     ocr = BatchedOCR(Config(**cfg, fused_stages="none"), serving["det"], serving["rec"], 4,
                      torch.float32, device="cpu", mesh=make_mesh(2, 1, ["cpu", "cpu"]))
     got = {k: v.numpy() for k, v in ocr(*_args(serving)).items()}
+    ocr.close()
     valid = want["valid"]
     assert valid.any()
     np.testing.assert_array_equal(got["valid"], valid)
@@ -197,7 +200,9 @@ def test_mesh_equals_jax_batched_ocr(serving):
 def test_mesh_run_images_and_refusals(serving):
     """``run_images`` over a mesh pads each group to a multiple of the data
     axis (3 images -> 4 rows) and answers as the unsharded program; a batch
-    the data axis does not divide, and a model axis, raise."""
+    the data axis does not divide raises; a 2x2 mesh (a model axis, whose
+    devices repeat the rows of their data index in the JAX program) keeps
+    one replica a data index and equals the unsharded program."""
     cfg = Config(**TINY, **serving["thresholds"], canvas_size=128, bucket_granularity=32)
     g = torch.Generator().manual_seed(0)
     det = init_module(VGG_UNet(), g).state_dict()
@@ -210,9 +215,16 @@ def test_mesh_run_images_and_refusals(serving):
     assert sharded.run_images(images) == plain.run_images(images)
     with pytest.raises(ValueError, match="does not evenly divide 3"):
         sharded(*(a[:3] for a in _args(serving)))
-    with pytest.raises(ValueError, match="ROADMAP.md Queue 1, item 9"):
-        BatchedOCR(cfg, det, rec, 4, torch.float32, device="cpu",
-                   mesh=make_mesh(2, 2, ["cpu"] * 4))
+    sharded.close()
+    model_axis = BatchedOCR(cfg, det, rec, 4, torch.float32, device="cpu",
+                            mesh=make_mesh(2, 2, ["cpu"] * 4))
+    assert len(model_axis.replicas) == 2
+    got, want = model_axis(*_args(serving)), plain(*_args(serving))
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+    assert model_axis.run_images(images) == plain.run_images(images)
+    model_axis.close()
+    assert model_axis.pool is None
 
 
 # -- processes -------------------------------------------------------------------

@@ -20,6 +20,9 @@ CPU side is held to the JAX package in ``test_torch_parallel.py``,
   frozen) of one process on the card: loss and gradient norm within
   1e-10, every tensor within 1e-8 relative L2 (the zero-gradient conv
   biases aside, as ``test_torch_craft.py``);
+* two gloo ranks on ``cuda:0`` as a 1x2 mesh (a model axis) take the
+  float64 CRNN step (TPS + Attention) of one process on the card, as
+  ``torch_dp_workers.assert_same_step`` holds it (1e-12 relative L2);
 * ``export_crnn`` (TPS + Attention) and ``export_craft`` on ``cuda``: the
   reloaded programs give the eager modules' outputs within 1e-5.
 """
@@ -91,6 +94,7 @@ def test_mesh_replicas_on_the_card(cuda_device):
     want = plain(*args)
     seam_tail.seam_tail.launches = cc.label_components.launches = 0
     got = sharded(*args)
+    sharded.close()
     assert seam_tail.seam_tail.launches == cc.label_components.launches == 2
     _check_sharded(got, want)
 
@@ -105,6 +109,7 @@ def test_first_mesh_dispatch_on_an_empty_build_dir(cuda_device, monkeypatch, tmp
         n for n in names if not native.library_path(n).exists()) or real_build(names))
     sharded = BatchedOCR(cfg, det, rec, 4, torch.bfloat16, mesh=make_mesh(2, 1, _devices()))
     got = sharded(*args)
+    sharded.close()
     assert sorted(builds) == sorted(set(builds)) and {"seam_tail", "cc"} <= set(builds)
     want = BatchedOCR(cfg, det, rec, 4, torch.bfloat16, device="cuda:0")(*args)
     _check_sharded(got, want)
@@ -124,6 +129,25 @@ def test_two_ranks_on_the_card_take_the_one_process_step(cuda_device):
         for k, v in alone[part].items():
             if k not in zero:
                 assert torch_dp_workers.rel_l2(got[part][k].cpu(), v.cpu()) < 1e-8, (part, k)
+
+
+def _cpu(result: dict) -> dict:
+    return {k: {n: t.cpu() if torch.is_tensor(t) else t for n, t in v.items()} if isinstance(v, dict) else v
+            for k, v in result.items()}
+
+
+def test_model_axis_on_the_card_takes_the_one_process_step(cuda_device):
+    cfg = Config(**TINY, height=32, width=64)
+    rng = np.random.default_rng(12)
+    sd = init_train_params(CRNNet(cfg), torch.Generator().manual_seed(0)).state_dict()
+    batch = {"images": torch.from_numpy(rng.uniform(-1, 1, (4, 32, 64, 1))),
+             "text": torch.from_numpy(rng.integers(2, 12, (4, cfg.batch_max_len + 2))),
+             "lengths": torch.full((4,), 5)}
+    cases = {"crnn": ("crnn", {"cfg": cfg, "init": sd, "batch": batch})}
+    alone = torch_dp_workers.run_cases(cases, torch.device("cuda", 0))["crnn"]
+    mesh = make_mesh(1, 2, [torch.device("cuda", 0)] * 2)
+    got = spawn(torch_dp_workers.run_cases, (cases,), mesh)["crnn"]
+    torch_dp_workers.assert_same_step(_cpu(got), _cpu(alone))
 
 
 @pytest.mark.parametrize("which", ["crnn", "craft"])
