@@ -152,7 +152,21 @@ exits non-zero with the traceback):
     ``cc_strip`` and ``conv12_pool``;
 and, after phase 5, ``rowpack``: one dispatch of the bf16
 ``fused_impl="rowpack"`` plan against the default plan (the CC kernel
-runs, the seam tail and #5 do not; scores within 0.1 of the largest).
+runs, the seam tail and #5 do not; scores within 0.1 of the largest);
+and, after phase 16, ``reduced_dtype``: training in bfloat16 on float32
+parameters, the card's step against the port's on the CPU: (a) CRAFT at
+b2 256x192, the loss within 1e-2, and block by block (each VGG slice,
+decoder block and the head on the CPU step's own input and output
+cotangent) the gradients and input cotangents within 0.05, the blocks'
+gradients together within 0.05 and at least 4x nearer the CPU's than the
+card's bfloat16 step's are to its float32 step's; (b) the ``Config()``
+CRNN at b8, the loss within 2 bf16 ulps, ``Prediction``'s and
+``SequenceModeling``'s gradients within 0.1, every gradient finite, and
+the ResNet's and (its last weight drawn, not zero) the TPS's blocks (each
+ResNet block, conv, BatchNorm, Linear; the TPS sampling on the CPU's
+fiducial points) as CRAFT's; (c) ms a step, the device's ms, forward / backward,
+peak memory and fc6 in bfloat16 beside float32, CRAFT at b8 960x640 and
+the CRNN at b64.
 
 Then one JSON line with each kernel's numbers, and as the last line
 ``{"ok": true, "device": {...}}``.  TF32 is switched OFF for float32 matmuls
@@ -239,6 +253,20 @@ MA_TINY64 = 1e-9  # a state tensor whose gradient has an element below Adam's ep
 MA_TOL32 = 1e-3  # and in float32 (the CRNN step), or TRAIN_GRAD_FACTOR x one process's own float32
 # distance to its float64 step, where that is larger
 MA_STEPS = 3  # timed float32 CRNN steps, after the compared one
+# phase reduced_dtype: one bfloat16 step (float32 parameters), card vs the port on the CPU
+RD_CRAFT = (2, 256, 192)  # the CRAFT step's (batch, height, width)
+RD_CRNN_BATCH = 8  # the CRNN step's batch (Config(): TPS + Attention)
+RD_LOSS_TOL = 1e-2  # CRAFT: |loss card / loss CPU - 1|
+RD_BLOCK_TOL = 0.05  # each block on the CPU step's own input and output cotangent: its gradients
+# and input cotangent, card vs CPU, relative L2 (and the blocks' gradients together)
+RD_RATIO = 4.0  # the card's bfloat16 step's gradients at least this many times further from its
+# float32 step's than its bfloat16 blocks' are from the CPU's, together
+RD_CRAFT_BLOCKS = ("basenet.slice1", "basenet.slice2", "basenet.slice3", "basenet.slice4", "basenet.slice5",
+                   "upconv1", "upconv2", "upconv3", "upconv4", "conv_cls")
+RD_CRNN_TOL = 0.1  # CRNN: Prediction's and SequenceModeling's gradients, relative L2 each
+RD_CRNN_ULPS = 2  # CRNN: the bfloat16 loss, in its ulps
+RD_SPEED = ((8, 960, 640), 64)  # the speed cases: CRAFT (batch, height, width), CRNN batch
+RD_SPEED_STEPS = 5  # timed steps a case and dtype, after 3 warm-up steps
 EXPORT_TOL = 1e-4  # reloaded program vs eager module, max |diff| over max |value| (TF32 off)
 EXPORT_CRAFT_HW = (320, 256)  # the detector's exported canvas
 NATIVE_IOU = 0.97  # host det_boxes vs the card's get_det_boxes (tests/test_native.py)
@@ -2406,6 +2434,388 @@ def model_axis_training(smi: str) -> None:
         assert r["replicas_equal"], f"{kind} {dt}: the model ranks' replicated tensors differ"
 
 
+def rel_l2(a: dict, b: dict, prefix: str = "") -> float:
+    """Relative L2 of the tensors of ``a`` against ``b`` named under
+    ``prefix``, all of them as one vector."""
+    keys = [k for k in b if k.startswith(prefix)]
+    x = torch.cat([a[k].double().flatten() for k in keys])
+    y = torch.cat([b[k].double().flatten() for k in keys])
+    return float((x - y).norm() / y.norm())
+
+
+def block_io(model, names, run):
+    """``run()`` (a forward and backward of ``model``) with the input, output
+    and output cotangent of each block in ``names`` recorded: (what ``run``
+    returns, ``{name: {"x", "y", "g"}}``, detached)."""
+    io = {}
+
+    def record(name):
+        def hook(m, args, out):
+            io[name] = {"x": args[0].detach(), "y": out.detach()}
+            out.register_hook(lambda g: io[name].__setitem__("g", g.detach()))
+        return hook
+
+    hooks = [model.get_submodule(n).register_forward_hook(record(n)) for n in names]
+    try:
+        return run(), io
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+def run_block(model, name: str, x, g, dtype) -> tuple[dict, torch.Tensor]:
+    """Block ``name`` of ``model`` alone (in its mode) on ``x`` with output
+    cotangent ``g``, both cast to ``dtype`` on the model's device:
+    ({parameter name: gradient on the CPU}, input cotangent on the CPU)."""
+    mod = model.get_submodule(name)
+    dev = next(model.parameters()).device
+    mod.zero_grad(set_to_none=True)
+    x = x.to(dev, dtype, copy=True).requires_grad_(True)
+    mod(x).backward(g.to(dev, dtype))
+    return ({f"{name}.{n}": p.grad.detach().cpu() for n, p in mod.named_parameters() if p.grad is not None},
+            x.grad.detach().cpu())
+
+
+def hold_blocks(what: str, names, io: dict, cpu, card, card32, step32: float, smi: str) -> None:
+    """Each block of ``names`` on the CPU step's own input and output
+    cotangent (``io``): the card's bfloat16 block (``card``) against the
+    CPU's (``cpu``), its gradients and input cotangent within RD_BLOCK_TOL
+    relative L2 (a gradient that is zero in exact arithmetic, under 1e-2 of
+    the block's norm on the CPU: within 1e-2 of that norm); the blocks'
+    gradients together within RD_BLOCK_TOL, and at most 1/RD_RATIO of
+    ``step32``, the card's bfloat16 step's distance to its float32 step.
+    The card's float32 blocks (``card32``) on the same inputs are printed
+    beside."""
+    every, every32, want_all, failed, lines = {}, {}, {}, [], []
+    for name in names:
+        x, g = io[name]["x"], io[name]["g"]
+        want, wdx = run_block(cpu, name, x, g, torch.bfloat16)
+        got, dx = run_block(card, name, x, g, torch.bfloat16)
+        got32, _ = run_block(card32, name, x, g, torch.float32)
+        every.update(got)
+        every32.update(got32)
+        want_all.update(want)
+        total = float(torch.cat([w.double().flatten() for w in want.values()]).norm())
+        assert total > 0 and float(wdx.norm()) > 0, f"{what}: block {name} passes no gradient"
+        big = {n: w for n, w in want.items() if float(w.double().norm()) >= 1e-2 * total}
+        grads = rel_l2(got, big)
+        tiny = max([float(got[n].double().norm()) / total for n in want if n not in big] or [0.0])
+        dxe = rel_l2({"dx": dx}, {"dx": wdx})
+        lines.append(f"{name} {grads:.4f}/{dxe:.4f}")
+        if not (grads <= RD_BLOCK_TOL and dxe <= RD_BLOCK_TOL and tiny <= 1e-2):
+            failed.append(f"{name} (gradients {grads:.4f}, input cotangent {dxe:.4f}, zero gradients {tiny:.2e})")
+    together = rel_l2(every, want_all)
+    to32 = rel_l2(every, every32)
+    apart = max(together, 1e-12)  # zero only where the card is the CPU (a rehearsal)
+    log(f"reduced_dtype {what} block by block, each on the CPU step's own input and output cotangent, card vs CPU "
+        f"bfloat16, gradients/input cotangent rel L2 (tol {RD_BLOCK_TOL}): " + ", ".join(lines)
+        + f"; together {together:.4f}; the card's bfloat16 step vs its float32 step {step32:.4f} "
+        f"({step32 / apart:.2f}x, at least {RD_RATIO}); the card's bfloat16 blocks vs its float32 blocks on the "
+        f"same inputs {to32:.4f} ({to32 / apart:.2f}x, not held); on {smi}")
+    if together > RD_BLOCK_TOL:
+        failed.append(f"together {together:.4f}")
+    if step32 < RD_RATIO * together:
+        failed.append(f"the bfloat16 step only {step32 / apart:.2f}x further from float32 than from the CPU")
+    assert not failed, f"reduced_dtype {what}: the card's bfloat16 blocks are off: {failed}"
+
+
+def crnn_blocks(model) -> list:
+    """The CRNN's TPS and ResNet as blocks: each ResNet ``BasicBlock``, and
+    each conv, BatchNorm and Linear of the two outside one."""
+    from lightly_ocr_tpu_torch.models.layers import BatchNorm2d
+    from lightly_ocr_tpu_torch.models.resnet import BasicBlock
+
+    blocks = [n for n, m in model.named_modules() if isinstance(m, BasicBlock)]
+    return blocks + [n for n, m in model.named_modules()
+                     if n.startswith(("Transformation.", "FeatureExtraction."))
+                     and isinstance(m, (torch.nn.Conv2d, BatchNorm2d, torch.nn.Linear))
+                     and not any(n.startswith(b + ".") for b in blocks)]
+
+
+def tps_given(model, x, fiducials, g) -> tuple:
+    """The CRNN's TPS on the crop ``x`` with its localization network's
+    output replaced by ``fiducials``, backward from ``g``, on the model's
+    device: (output, crop cotangent, fiducial cotangent) on the CPU."""
+    tps = model.Transformation
+    dev = next(model.parameters()).device
+    x = x.to(dev, copy=True).requires_grad_(True)
+    c = fiducials.to(dev, copy=True).requires_grad_(True)
+    hook = tps.LocalizationNetwork.register_forward_hook(lambda m, args, out: c)
+    try:
+        y = tps(x)
+    finally:
+        hook.remove()
+    y.backward(g.to(dev))
+    return y.detach().cpu(), x.grad.cpu(), c.grad.cpu()
+
+
+def rd_speed(name: str, make, step_fn, split_fn, smi: str) -> dict:
+    """ms a step (median of RD_SPEED_STEPS after 3 warm-up steps, host clock
+    around a synchronise), the device's ms (torch.profiler, one step), the
+    forward / backward split (CUDA events, median of 3) and the peak memory
+    of ``step_fn(state)`` for each dtype; ``make(dtype)`` -> state."""
+    out = {}
+    for dt in (torch.float32, torch.bfloat16):
+        gc.collect()
+        torch.cuda.empty_cache()
+        base_mem = torch.cuda.memory_allocated()
+        state = make(dt)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(3):
+            step_fn(state)
+        times = []
+        for _ in range(RD_SPEED_STEPS):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            step_fn(state)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+        peak = (torch.cuda.max_memory_allocated() - base_mem) / 2 ** 30
+        prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
+        with prof:
+            step_fn(state)
+            torch.cuda.synchronize()
+        kern = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy = sum(e.device_time_total for e in kern) / 1e3
+        split = np.median([split_fn(state) for _ in range(3)], axis=0)
+        out[dt] = dict(ms=1e3 * float(np.median(times)), busy=busy, kernels=sum(e.count for e in kern),
+                       split=split, peak=peak, lo=1e3 * min(times), hi=1e3 * max(times))
+        del state
+    for dt, r in out.items():
+        log(f"reduced_dtype speed {name} {str(dt).replace('torch.', '')}: {r['ms']:.3f} ms a step (median "
+            f"of {RD_SPEED_STEPS}; min {r['lo']:.3f}, max {r['hi']:.3f}; host clock), device {r['busy']:.3f} ms, "
+            f"{r['kernels']} CUDA kernels a step (torch.profiler); "
+            + ", ".join(f"{k} {v:.3f}" for k, v in zip(("forward", "backward", "rest"), r["split"]))
+            + f" ms (CUDA events, median of 3); peak memory {r['peak']:.2f} GiB; on {smi}")
+    f32, bf = out[torch.float32], out[torch.bfloat16]
+    log(f"reduced_dtype speed {name}: bfloat16 / float32 ms a step {bf['ms'] / f32['ms']:.3f}, device "
+        f"{bf['busy'] / max(f32['busy'], 1e-30):.3f}, peak memory {bf['peak'] / max(f32['peak'], 1e-30):.3f}; "
+        f"on {smi}")
+    return out
+
+
+def reduced_dtype_phase(smi: str, dev: str = "cuda:0") -> None:
+    """Phase ``reduced_dtype``: training in bfloat16 on float32 parameters
+    (``init_craft_state(dtype=)``, ``init_train_state(model=CRNNet(cfg,
+    dtype=))``) on ``cuda:0``, each step against the port's own on the CPU
+    (TF32 off for the float32 steps).
+
+    A bfloat16 step is reproducible block by block, not whole: a conv
+    output an ulp apart (cuDNN's and oneDNN's float32 sums) moves a ReLU or
+    max pool across its kink, and the cotangent it passes differs.  So each
+    step is held whole where that holds, and block by block on the CPU
+    step's own input and output cotangent (:func:`hold_blocks`): (a) CRAFT
+    at RD_CRAFT: the loss within RD_LOSS_TOL; each of RD_CRAFT_BLOCKS (VGG
+    slices, decoder blocks, head) and the blocks together within
+    RD_BLOCK_TOL, the blocks together at least RD_RATIO times nearer the
+    CPU's than the card's bfloat16 step is to its float32 step; (b) the
+    ``Config()`` CRNN at RD_CRNN_BATCH: the loss (a bfloat16 number)
+    within RD_CRNN_ULPS ulps, ``Prediction``'s and ``SequenceModeling``'s
+    gradients within RD_CRNN_TOL each, every gradient finite; the ResNet's
+    blocks (:func:`crnn_blocks`) as CRAFT's; the TPS's blocks as CRAFT's,
+    and its sampling on the CPU step's fiducial points within
+    RD_BLOCK_TOL, with its ``localization_fc2`` weight drawn (the init's
+    zero passes its localization network no gradient); then
+    the share of serving-sized TPS crops on which the card's bf16
+    ``F.grid_sample`` equals the float32 sample rounded once (as the TPS
+    now samples); (c)
+    ms a step, the device's ms, forward / backward, peak memory and fc6's
+    ms in bfloat16 beside float32: CRAFT at b8 960x640, the CRNN at b64."""
+    from lightly_ocr_tpu_torch.config import Config
+    from lightly_ocr_tpu_torch.models.crnn import CRNNet
+    from lightly_ocr_tpu_torch.models.layers import max_pool
+    from lightly_ocr_tpu_torch.text.converters import build_converter
+    from lightly_ocr_tpu_torch.train.craft import (
+        batch_to,
+        craft_loss,
+        init_craft_state,
+        make_craft_train_step,
+        synthesize_batch,
+    )
+    from lightly_ocr_tpu_torch.train.train_step import init_train_state, loss_fn, make_train_step
+    from lightly_ocr_tpu_torch.train.trainer import encode_batch
+
+    bf16 = torch.bfloat16
+    # (a) CRAFT, card against the CPU
+    t0 = time.perf_counter()
+    B, H, W = RD_CRAFT
+    host = synthesize_batch(np.random.default_rng(SEED + 18), B, H, W)
+    init = init_craft_state(SEED, device="cpu")[0].state_dict()
+
+    def craft_model(dt, where):
+        model, _ = init_craft_state(SEED, device=where, dtype=dt)
+        model.load_state_dict(init, strict=True)
+        return model
+
+    def craft_step(model, where):
+        def run():
+            loss = craft_loss(model, batch_to(host, where))
+            loss.backward()
+            return loss.item(), {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+        return run
+
+    cpu = craft_model(bf16, "cpu")
+    (lc, gc_), io = block_io(cpu, RD_CRAFT_BLOCKS, craft_step(cpu, "cpu"))
+    card, card32 = craft_model(bf16, dev), craft_model(torch.float32, dev)
+    lg, gg = craft_step(card, dev)()
+    _, gg32 = craft_step(card32, dev)()
+    loss_err = abs(lg / lc - 1)
+    by_module = {m: rel_l2(gg, gc_, m) for m in ("", "basenet.", "upconv", "conv_cls.")}
+    log(f"reduced_dtype craft b{B} {H}x{W} bfloat16 whole step, card vs the port on the CPU: loss {lg:.6f} vs "
+        f"{lc:.6f} (rel {loss_err:.2e}, tol {RD_LOSS_TOL}); gradients rel L2 (not held whole: a ReLU or max pool "
+        f"an ulp moves across its kink passes another cotangent) "
+        + ", ".join(f"{k.rstrip('.') or 'all'} {v:.4f}" for k, v in by_module.items())
+        + f"; bfloat16 vs float32 on the card {rel_l2(gg, gg32):.4f}; {time.perf_counter() - t0:.2f} s; on {smi}")
+    assert loss_err <= RD_LOSS_TOL, f"reduced_dtype craft: the card's bfloat16 loss is off by {loss_err:.2e}"
+    hold_blocks(f"craft b{B} {H}x{W}", RD_CRAFT_BLOCKS, io, cpu, card, card32, rel_l2(gg, gg32), smi)
+    log(f"reduced_dtype (a) craft: {time.perf_counter() - t0:.2f} s")
+    del cpu, card, card32, io, gc_, gg, gg32
+    # (b) the Config() CRNN, card against the CPU
+    t0 = time.perf_counter()
+    cfg = Config()
+    rng = np.random.default_rng(SEED + 18)
+    images = rng.uniform(-1, 1, (RD_CRNN_BATCH, cfg.height, cfg.width, 1)).astype(np.float32)
+    labels = ["".join(rng.choice(list(cfg.character), rng.integers(3, 12))) for _ in range(RD_CRNN_BATCH)]
+    converter = build_converter(cfg.prediction, cfg.character)
+    cpu = init_train_state(cfg, SEED, "cpu", model=CRNNet(cfg, dtype=bf16))[0]
+
+    def crnn_model(dt, where=dev, state=None):
+        model = init_train_state(cfg, SEED, where, model=CRNNet(cfg, dtype=dt))[0]
+        model.load_state_dict(cpu.state_dict() if state is None else state, strict=True)
+        return model
+
+    def crnn_step(model, where):
+        def run():
+            loss, _ = loss_fn(model, cfg, encode_batch(cfg, converter, images, labels, where))
+            loss.backward()
+            return loss.item(), loss.dtype, {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+        return run
+
+    def step32(grads, grads32, prefix):
+        return rel_l2({n: g for n, g in grads.items() if n.startswith(prefix)}, grads32, prefix)
+
+    blocks = crnn_blocks(cpu)
+    resnet = [n for n in blocks if n.startswith("FeatureExtraction.")]
+    (lc, dtc, gc_), io = block_io(cpu, resnet, crnn_step(cpu, "cpu"))
+    card, card32 = crnn_model(bf16), crnn_model(torch.float32)
+    lg, dtg, gg = crnn_step(card, dev)()
+    _, _, gg32 = crnn_step(card32, dev)()
+    ulp = 2.0 ** (np.floor(np.log2(abs(lc))) - 7)
+    mods = {m: rel_l2(gg, gc_, m + ".") for m in
+            ("Transformation", "FeatureExtraction", "SequenceModeling", "Prediction")}
+    finite = all(bool(torch.isfinite(g).all()) for g in gg.values())
+    log(f"reduced_dtype crnn Config() b{RD_CRNN_BATCH} bfloat16 whole step, card vs the port on the CPU: loss {lg} "
+        f"vs {lc} ({dtg} on both: {dtg == dtc == bf16}; {abs(lg - lc) / ulp:.0f} ulps, tol {RD_CRNN_ULPS}); "
+        f"gradients rel L2 by module " + ", ".join(f"{k} {v:.4f}" for k, v in mods.items())
+        + f" (Prediction and SequenceModeling tol {RD_CRNN_TOL}; the TPS and the ResNet held block by block); "
+        f"bfloat16 vs float32 on the card {rel_l2(gg, gg32):.4f}; every gradient finite: {finite}; "
+        f"{time.perf_counter() - t0:.2f} s; on {smi}")
+    failed = [gate for gate, ok in (
+        ("loss dtype", dtg == dtc == bf16), ("loss", abs(lg - lc) <= RD_CRNN_ULPS * ulp),
+        ("Prediction", mods["Prediction"] <= RD_CRNN_TOL),
+        ("SequenceModeling", mods["SequenceModeling"] <= RD_CRNN_TOL), ("finite", finite)) if not ok]
+    assert not failed, f"reduced_dtype crnn: the card's bfloat16 step is off: {failed}"
+    hold_blocks(f"crnn Config() b{RD_CRNN_BATCH} ResNet", resnet, io, cpu, card, card32,
+                step32(gg, gg32, "FeatureExtraction."), smi)
+    del io, gc_, gg, gg32, card, card32
+    # the TPS: the init's zero localization_fc2 weight passes its localization network no
+    # gradient, so these models draw it; then each conv, BatchNorm and Linear of the TPS, and its
+    # sampling on the CPU step's fiducial points, card against CPU
+    state = cpu.state_dict()
+    fc2 = "Transformation.LocalizationNetwork.localization_fc2.weight"
+    state[fc2] = 0.05 * torch.randn(state[fc2].shape, generator=torch.Generator().manual_seed(SEED))
+    cpu = crnn_model(bf16, "cpu", state)
+    tps_blocks = [n for n in blocks if n.startswith("Transformation.")]
+    _, io = block_io(cpu, [*tps_blocks, "Transformation", "Transformation.LocalizationNetwork"],
+                     crnn_step(cpu, "cpu"))
+    card, card32 = crnn_model(bf16, dev, state), crnn_model(torch.float32, dev, state)
+    _, _, gg = crnn_step(card, dev)()
+    _, _, gg32 = crnn_step(card32, dev)()
+    hold_blocks(f"crnn Config() b{RD_CRNN_BATCH} TPS (localization_fc2 drawn)", tps_blocks, io, cpu, card, card32,
+                step32(gg, gg32, "Transformation."), smi)
+    tps = {where: tps_given(model, io["Transformation"]["x"], io["Transformation.LocalizationNetwork"]["y"],
+                            io["Transformation"]["g"]) for where, model in (("cpu", cpu), ("card", card))}
+    errs = [rel_l2({"a": a}, {"a": b}) for a, b in zip(tps["card"], tps["cpu"])]
+    log(f"reduced_dtype crnn TPS sampling on the CPU step's fiducial points, crop and output cotangent, card vs CPU "
+        f"bfloat16 rel L2: output {errs[0]:.4f}, crop cotangent {errs[1]:.4f}, fiducial cotangent {errs[2]:.4f} "
+        f"(tol {RD_BLOCK_TOL}); on {smi}")
+    assert max(errs) <= RD_BLOCK_TOL, f"reduced_dtype crnn: the card's TPS sampling is off: {errs}"
+    del cpu, card, card32, io, gg, gg32
+    log(f"reduced_dtype (b) crnn: {time.perf_counter() - t0:.2f} s")
+    # the TPS samples in float32 coordinates, rounded once (ops/grid_sample.py); serving's bf16
+    # crops took the card's bf16 F.grid_sample before: the share of elements the two agree on
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    crops = torch.randn(BATCH * BOXES, 1, cfg.height, cfg.width, device=dev, generator=g).to(bf16)
+    grid = (torch.rand(BATCH * BOXES, cfg.height, cfg.width, 2, device=dev, generator=g) * 2.2 - 1.1).to(bf16)
+    kw = dict(align_corners=True, padding_mode="border")
+    same = (F.grid_sample(crops, grid, **kw) == F.grid_sample(crops.float(), grid.float(), **kw).to(bf16))
+    log(f"reduced_dtype TPS sampling: the bf16 F.grid_sample against the float32 sample rounded once on "
+        f"{BATCH * BOXES} crops of {cfg.height}x{cfg.width}: {float(same.float().mean()):.6f} of the "
+        f"elements equal; on {smi}")
+    del crops, grid, same
+    # (c) speed, bfloat16 beside float32
+    t0 = time.perf_counter()
+    (B, H, W), CB = RD_SPEED
+    cbatch = batch_to(synthesize_batch(np.random.default_rng(SEED), B, H, W), dev)
+
+    def craft_make(dt):
+        model, state = init_craft_state(SEED, device=dev, dtype=dt)
+        return model, state, make_craft_train_step(model)
+
+    def craft_split(st):
+        model, state, _ = st
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        state.optimizer.zero_grad(set_to_none=True)
+        ev[0].record()
+        loss = craft_loss(model, cbatch)
+        ev[1].record()
+        loss.backward()
+        ev[2].record()
+        torch.cuda.synchronize()
+        return [ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])]
+
+    rd_speed(f"craft b{B} {H}x{W}", craft_make, lambda st: st[2](st[1], cbatch), craft_split, smi)
+    fc6 = {}
+    for dt in (torch.float32, torch.bfloat16):  # fc6 (3x3, dilation 6, 512 -> 1024) alone, forward + backward
+        model, _ = init_craft_state(SEED, device=dev, dtype=dt)
+        with torch.no_grad():
+            x = max_pool(model.basenet(model._nchw(cbatch["images"]))["slice4"], 3, 1, 1)
+        x.requires_grad_(True)
+        conv = model.basenet.slice5["1"]
+        g = torch.ones_like(conv(x))
+        fc6[dt] = [cuda_ms(lambda: conv(x), iters=3), cuda_ms(lambda: conv(x).backward(g), iters=3)]
+        del model, x, conv, g
+    log(f"reduced_dtype speed craft b{B} {H}x{W} fc6 (CUDA events): float32 forward {fc6[torch.float32][0]:.3f}, "
+        f"forward + backward {fc6[torch.float32][1]:.3f} ms; bfloat16 {fc6[bf16][0]:.3f}, "
+        f"{fc6[bf16][1]:.3f} ms; on {smi}")
+    del cbatch
+    cfg = Config()
+    rng = np.random.default_rng(SEED)
+    images = rng.uniform(-1, 1, (CB, cfg.height, cfg.width, 1)).astype(np.float32)
+    labels = ["".join(rng.choice(list(cfg.character), rng.integers(3, 12))) for _ in range(CB)]
+    rbatch = encode_batch(cfg, build_converter(cfg.prediction, cfg.character), images, labels, dev)
+
+    def crnn_make(dt):
+        model, state = init_train_state(cfg, SEED, dev, model=CRNNet(cfg, dtype=dt))
+        return model, state, make_train_step(model, cfg)
+
+    def crnn_split(st):
+        model, state, _ = st
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        state.optimizer.zero_grad(set_to_none=True)
+        ev[0].record()
+        loss, _ = loss_fn(model, cfg, rbatch)
+        ev[1].record()
+        loss.backward()
+        ev[2].record()
+        torch.cuda.synchronize()
+        return [ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])]
+
+    rd_speed(f"crnn Config() b{CB}", crnn_make, lambda st: st[2](st[1], rbatch), crnn_split, smi)
+    log(f"reduced_dtype (c) speed: {time.perf_counter() - t0:.2f} s")
+
+
 def export_phase(smi: str) -> None:
     """``export_crnn`` (Config(): TPS + Attention) and ``export_craft`` on
     the card: saved, reloaded, and held to the eager modules."""
@@ -2919,6 +3329,9 @@ def main() -> int:
     model_axis_serving(e2e_cfg, det_sd, rec_sd, imgs, smi)
     model_axis_training(smi)
     log(f"phase model_axis: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    reduced_dtype_phase(smi)
+    log(f"phase reduced_dtype: {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
     export_phase(smi)
     log(f"phase export: {time.perf_counter() - t0:.2f} s")

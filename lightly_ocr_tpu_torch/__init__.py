@@ -11,3 +11,5 @@ version.
 """
 
 __version__ = "0.1.0"
+
+from lightly_ocr_tpu_torch.config import Config, load_config  # noqa: F401

@@ -13,8 +13,9 @@ eager program that computes every form, so they are validated and have no
 effect.  ``compute_dtype``, ``param_dtype``, ``num_gpu`` and ``onnx_path``
 are kept for file compatibility: the port takes the serving dtype as an
 argument.
-``yaml`` is imported inside :func:`load_config` only, so the package
-imports without it; without it, a config file is read as JSON.
+``yaml`` is imported inside :func:`load_config` and :func:`save_config`
+only, so the package imports without it; without it, a config file is
+read and written as JSON.
 """
 from __future__ import annotations
 
@@ -220,3 +221,17 @@ def load_config(path: str | None = None) -> Config:
     else:
         data = yaml.safe_load(text) or {}
     return Config.from_dict(data)
+
+
+def save_config(cfg: Config, path: str) -> None:
+    """Write ``cfg`` as YAML, as the JAX package does; where ``yaml`` is not
+    installed, as JSON (which :func:`load_config` reads either way)."""
+    try:
+        import yaml
+    except ImportError:
+        yaml = None
+    with open(os.path.expanduser(path), "w") as f:
+        if yaml is None:
+            json.dump(cfg.to_dict(), f, indent=2)
+        else:
+            yaml.safe_dump(cfg.to_dict(), f, sort_keys=False)

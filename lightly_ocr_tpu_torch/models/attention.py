@@ -16,6 +16,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from lightly_ocr_tpu_torch.models.layers import Linear, LSTMCell
+
 _NEG = -1.0e30
 _EOS = 1
 
@@ -23,18 +25,20 @@ _EOS = 1
 class AttentionCell(nn.Module):
     def __init__(self, n_in: int, hidden: int, num_classes: int):
         super().__init__()
-        self.i2h = nn.Linear(n_in, hidden, bias=False)
-        self.h2h = nn.Linear(hidden, hidden)
-        self.score = nn.Linear(hidden, 1, bias=False)
-        self.rnn = nn.LSTMCell(n_in + num_classes, hidden)
+        self.i2h = Linear(n_in, hidden, bias=False)
+        self.h2h = Linear(hidden, hidden)
+        self.score = Linear(hidden, 1, bias=False)
+        self.rnn = LSTMCell(n_in + num_classes, hidden)
 
-    def lstm_cell(self):
-        """The LSTM cell as a function for one decode: a cell whose weights
-        are split over a model axis gathers them here, once for all the
-        steps (:class:`~lightly_ocr_tpu_torch.parallel.tensor.
+    def lstm_cell(self, feats: torch.Tensor):
+        """The LSTM cell as a function for one decode over ``feats``, its
+        weights cast to ``feats``' dtype once for all the steps
+        (:meth:`~lightly_ocr_tpu_torch.models.layers.LSTMCell.cast`); a
+        cell whose weights are split over a model axis gathers them here,
+        once (:class:`~lightly_ocr_tpu_torch.parallel.tensor.
         ShardedLSTMCell`)."""
         gathered = getattr(self.rnn, "gathered", None)
-        return self.rnn if gathered is None else gathered()
+        return self.rnn.cast(feats) if gathered is None else gathered()
 
     def step(self, feats, proj, h, c, prev, num_classes: int, rnn):
         """One decode step for states ``h``, ``c`` [..., H] attending over
@@ -56,7 +60,7 @@ class Attention(nn.Module):
         super().__init__()
         self.hidden, self.num_classes, self.num_steps = hidden, num_classes, num_steps
         self.attention_cell = AttentionCell(n_in, hidden, num_classes)
-        self.generator = nn.Linear(hidden, num_classes)
+        self.generator = Linear(hidden, num_classes)
 
     def forward(self, feats: torch.Tensor, beam_width: int | None = None,
                 lm: torch.Tensor | None = None, text: torch.Tensor | None = None):
@@ -80,7 +84,7 @@ class Attention(nn.Module):
             return self._beam_decode(feats, int(beam_width), lm)
         cell = self.attention_cell
         B = feats.shape[0]
-        proj, rnn = cell.i2h(feats), cell.lstm_cell()
+        proj, rnn = cell.i2h(feats), cell.lstm_cell(feats)
         h = feats.new_zeros(B, self.hidden)
         c = feats.new_zeros(B, self.hidden)
         prev = torch.zeros(B, dtype=torch.long, device=feats.device)  # [GO]
@@ -99,7 +103,7 @@ class Attention(nn.Module):
             raise ValueError("lm fusion is inference-only")
         cell = self.attention_cell
         B = feats.shape[0]
-        proj, rnn = cell.i2h(feats), cell.lstm_cell()
+        proj, rnn = cell.i2h(feats), cell.lstm_cell(feats)
         h = feats.new_zeros(B, self.hidden)
         c = feats.new_zeros(B, self.hidden)
         hs = []
@@ -126,7 +130,7 @@ class Attention(nn.Module):
         C, S, H = self.num_classes, self.num_steps, self.hidden
         dev = feats.device
         feats1 = feats[:, None]  # [B, 1, T, n_in]
-        proj1, rnn = cell.i2h(feats)[:, None], cell.lstm_cell()
+        proj1, rnn = cell.i2h(feats)[:, None], cell.lstm_cell(feats)
         h = feats.new_zeros(B, W, H)
         c = feats.new_zeros(B, W, H)
         prev = torch.zeros((B, W), dtype=torch.long, device=dev)  # [GO]

@@ -8,7 +8,10 @@ teacher-forced on ``text``; in ``eval()`` greedy or beam decode, with an
 optional LM prior).  A ``quant=True`` model refuses a forward that could
 train it (``train()`` mode with gradients on), as the JAX package does.
 ``quant=True`` runs the ResNet's convs as w8a8 :class:`QuantConv`; TPS,
-BiLSTM and the heads stay float, as in the JAX package.
+BiLSTM and the heads stay float, as in the JAX package.  ``dtype`` is the
+compute dtype on float32 parameters (the JAX model's ``dtype``,
+:func:`~lightly_ocr_tpu_torch.models.layers.compute_dtype`); the TPS
+computes its grid in float32 whatever it is.
 """
 from __future__ import annotations
 
@@ -17,16 +20,18 @@ from torch import nn
 
 from lightly_ocr_tpu_torch.config import Config
 from lightly_ocr_tpu_torch.models.attention import Attention
+from lightly_ocr_tpu_torch.models.layers import Linear, compute_dtype, init_train_params
 from lightly_ocr_tpu_torch.models.lstm import SeqModeling
 from lightly_ocr_tpu_torch.models.resnet import ResNet50v2
 from lightly_ocr_tpu_torch.models.tps import TPS_STN
 
 
 class CRNNet(nn.Module):
-    def __init__(self, cfg: Config, quant: bool = False):
+    def __init__(self, cfg: Config, quant: bool = False, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.cfg = cfg
         self.quant = quant
+        self.dtype = dtype
         cin = cfg.derived_input_channel
         self.Transformation = (
             TPS_STN(cfg.num_fiducial, cfg.height, cfg.width, cin)
@@ -39,7 +44,7 @@ class CRNNet(nn.Module):
             self.SequenceModeling = SeqModeling(n, cfg.hidden_size)
             n = cfg.hidden_size
         if cfg.prediction == "CTC":
-            self.Prediction = nn.Linear(n, cfg.derived_num_classes)
+            self.Prediction = Linear(n, cfg.derived_num_classes)
         else:
             self.Prediction = Attention(n, cfg.hidden_size, cfg.derived_num_classes,
                                         cfg.num_steps)
@@ -72,8 +77,7 @@ class CRNNet(nn.Module):
                 "backbone conv.  Train in float and enable quant_int8 only "
                 "for serving (call .eval() to serve)."
             )
-        p = next(self.parameters())
-        x = images.permute(0, 3, 1, 2).to(p.dtype)
+        x = images.permute(0, 3, 1, 2).to(compute_dtype(self))
         if self.Transformation is not None:
             x = self.Transformation(x)
         x = self.FeatureExtraction(x)  # [B, C, H', W']
@@ -83,3 +87,16 @@ class CRNNet(nn.Module):
         if self.cfg.prediction == "CTC":
             return self.Prediction(x)
         return self.Prediction(x, beam_width, lm, text=text)
+
+
+def init_crnn(cfg: Config, seed: int, dtype: torch.dtype = torch.float32,
+              device="cuda") -> CRNNet:
+    """A :class:`CRNNet` computing in ``dtype`` on float32 parameters,
+    with flax's seeded initialisation (:func:`~lightly_ocr_tpu_torch.
+    models.layers.init_train_params`), on ``device`` (the card unless the
+    caller asks for the CPU; raises without one): the JAX package's
+    ``init_crnn``, whose model and variables are this one module."""
+    from lightly_ocr_tpu_torch.serving.batch import resolve_device
+
+    model = init_train_params(CRNNet(cfg, dtype=dtype), torch.Generator().manual_seed(int(seed)))
+    return model.to(resolve_device(device))

@@ -3,6 +3,12 @@
 Module and parameter names follow the reference torch state dict, so the
 output of :func:`lightly_ocr_tpu_torch.weights.state_dict_from_variables`
 loads with ``strict=True``.
+
+A model computes in its compute dtype (:func:`compute_dtype`) on float32
+parameters, as a flax model with ``dtype=`` does: every conv, Linear and
+LSTM casts its parameters to the activation's dtype before the product
+(:func:`cast_to`), and :class:`BatchNorm2d` reduces in float32 and rounds
+once.
 """
 from __future__ import annotations
 
@@ -197,7 +203,74 @@ def tap_major(w: torch.Tensor) -> torch.Tensor:
     return w.permute(2, 3, 1, 0).reshape(kh * kw * I, O).contiguous()
 
 
-class QuantConv(nn.Conv2d):
+def cast_to(t: torch.Tensor | None, x: torch.Tensor) -> torch.Tensor | None:
+    """``t`` in ``x``'s dtype (``None`` stays ``None``): flax's rule for a
+    layer's parameters, which are cast to the compute dtype before the
+    product.  Parameters already in that dtype (a model moved by
+    :func:`to_serving`, or cast with ``.to``) come back as they are, so
+    such a model computes exactly as it did without the cast."""
+    return None if t is None else t.to(x.dtype)
+
+
+def compute_dtype(model: nn.Module) -> torch.dtype:
+    """The dtype ``model`` computes in: its ``dtype`` while its parameters
+    are float32 (master weights, as the JAX package keeps them whatever the
+    compute dtype), else its parameters' dtype (``.double()``,
+    :func:`to_serving`)."""
+    p = next(model.parameters()).dtype
+    return model.dtype if p == torch.float32 else p
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` on its weight and bias cast to the input's dtype
+    (:func:`cast_to`), as flax's ``Conv(dtype=...)``."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._conv_forward(x, cast_to(self.weight, x), cast_to(self.bias, x))
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` on its weight and bias cast to the input's dtype
+    (:func:`cast_to`), as flax's ``Dense(dtype=...)``."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, cast_to(self.weight, x), cast_to(self.bias, x))
+
+
+class LSTM(nn.LSTM):
+    """``nn.LSTM`` on a batched input, its weights cast to the input's
+    dtype once a call (:func:`cast_to`).  Weights already in that dtype
+    are passed as they are: the call ``nn.LSTM`` makes (cuDNN's flattened
+    weights on the card)."""
+
+    def forward(self, x: torch.Tensor, hx=None):
+        self._update_flat_weights()
+        if hx is None:
+            n = self.num_layers * (2 if self.bidirectional else 1)
+            h0 = x.new_zeros(n, x.shape[0 if self.batch_first else 1], self.hidden_size)
+            hx = (h0, h0)
+        out, h, c = torch.lstm(x, hx, [cast_to(w, x) for w in self._flat_weights], self.bias,
+                               self.num_layers, self.dropout, self.training,
+                               self.bidirectional, self.batch_first)
+        return out, (h, c)
+
+
+class LSTMCell(nn.LSTMCell):
+    """``nn.LSTMCell`` whose :meth:`cast` casts its weights once for any
+    number of steps (:func:`cast_to`)."""
+
+    def cast(self, x: torch.Tensor):
+        """The cell as a function ``(input, (h, c)) -> (h, c)`` on its
+        weights in ``x``'s dtype."""
+        w = [cast_to(t, x) for t in (self.weight_ih, self.weight_hh, self.bias_ih, self.bias_hh)]
+
+        def cell(inp, hx):
+            return torch.lstm_cell(inp, hx, *w)
+
+        return cell
+
+
+class QuantConv(Conv2d):
     """``nn.Conv2d`` with the JAX package's w8a8 serving mode
     (``lightly_ocr_tpu/models/layers.py::QuantConv``), same parameters.
 
@@ -205,8 +278,9 @@ class QuantConv(nn.Conv2d):
     symmetric per-out-channel int8 from the float32 master, the input
     symmetric per-sample int8, the products int32 sums
     (:func:`int8_conv`), then ``y * (sx * sw) + b`` in float32 and a cast
-    to the module's dtype.  Narrower layers, or ``quant`` off, run the
-    float convolution of ``nn.Conv2d``.
+    to the input's dtype.  Narrower layers, or ``quant`` off, run the
+    float convolution of :class:`Conv2d` (the parameters cast to the
+    input's dtype).
 
     The JAX package keeps float32 master parameters whatever the compute
     dtype.  :func:`to_serving` moves a model to its device and dtype and
@@ -247,8 +321,8 @@ class QuantConv(nn.Conv2d):
         if not self.quantized:
             # flax's Conv: the product rounded to the compute dtype, then
             # the bias added in that dtype
-            y = self._conv_forward(x, self.weight, None)
-            return y if self.bias is None else y + self.bias[:, None, None]
+            y = self._conv_forward(x, cast_to(self.weight, x), None)
+            return y if self.bias is None else y + cast_to(self.bias, x)[:, None, None]
         wq, sw = self._codes if self._codes is not None else self._quantized_weight()
         xq, sx = quantize_per_sample(x.permute(0, 2, 3, 1))  # NHWC
         y = int8_conv(xq, wq, self.kernel_size, self.stride, self.padding, self.dilation)

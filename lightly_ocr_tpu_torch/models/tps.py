@@ -2,10 +2,13 @@
 
 Port of ``lightly_ocr_tpu/models/tps.py`` (reference ``ocr/modules/
 TPS_STN.py:10-150``): a localization network predicts F fiducial points, the
-TPS system maps them to a sampling grid, and the crop is resampled with
-bilinear ``F.grid_sample`` (border padding, ``align_corners=True`` — the
-semantics of ``lightly_ocr_tpu/ops/grid_sample.py``: the continuous
-coordinate is clamped to the image before interpolation).
+TPS system maps them to a sampling grid, and the crop is resampled
+bilinearly (border padding, ``align_corners=True``) by
+:func:`lightly_ocr_tpu_torch.ops.grid_sample.grid_sample`, the semantics of
+``lightly_ocr_tpu/ops/grid_sample.py``: the continuous coordinate is
+clamped to the image before interpolation, and coordinates and weights are
+float32 whatever the crop's dtype (the grid is rounded to that dtype
+first, as in the JAX module); the result is rounded to the crop's dtype.
 """
 from __future__ import annotations
 
@@ -16,7 +19,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from lightly_ocr_tpu_torch.models.layers import BatchNorm2d, max_pool
+from lightly_ocr_tpu_torch.models.layers import BatchNorm2d, Conv2d, Linear, max_pool
+from lightly_ocr_tpu_torch.ops.grid_sample import grid_sample
 
 
 @functools.lru_cache(maxsize=8)
@@ -57,32 +61,43 @@ def fiducial_bias_init(F_: int) -> np.ndarray:
     return np.concatenate([top, bot], axis=0).reshape(-1).astype(np.float32)
 
 
+# the localization network's conv units: (conv, BatchNorm) names, channels
+_UNITS = (("0", "1", 64), ("4", "5", 128), ("8", "9", 256), ("12", "13", 512))
+
+
 class LocalizationNetwork(nn.Module):
     def __init__(self, F_: int, in_ch: int):
         super().__init__()
         self.F = F_
         layers = {}
         cin = in_ch
-        for ch, ci, bi in ((64, "0", "1"), (128, "4", "5"), (256, "8", "9"),
-                           (512, "12", "13")):
-            layers[ci] = nn.Conv2d(cin, ch, 3, padding=1, bias=False)
+        for ci, bi, ch in _UNITS:
+            layers[ci] = Conv2d(cin, ch, 3, padding=1, bias=False)
             layers[bi] = BatchNorm2d(ch)
             cin = ch
         self.conv = nn.ModuleDict(layers)
-        self.localization_fc1 = nn.ModuleDict({"0": nn.Linear(512, 256)})
-        self.localization_fc2 = nn.Linear(256, 2 * F_)
+        self.localization_fc1 = nn.ModuleDict({"0": Linear(512, 256)})
+        self.localization_fc2 = Linear(256, 2 * F_)
         # RARE Fig. 6a: zero weights + fiducial bias = identity-like warp
         self.localization_fc2._keep_init = True
         with torch.no_grad():
             self.localization_fc2.weight.zero_()
             self.localization_fc2.bias.copy_(torch.from_numpy(fiducial_bias_init(F_)))
 
-    def forward(self, x):
-        for ci, bi in (("0", "1"), ("4", "5"), ("8", "9"), ("12", "13")):
-            x = max_pool(F.relu(self.conv[bi](self.conv[ci](x))), 2, 2)
-        x = x.mean(dim=(2, 3))
-        x = F.relu(self.localization_fc1["0"](x))
+    def unit(self, i: int, x):
+        """Conv unit ``i`` (0-3): conv, BatchNorm, ReLU, 2x2 max pool."""
+        ci, bi, _ = _UNITS[i]
+        return max_pool(F.relu(self.conv[bi](self.conv[ci](x))), 2, 2)
+
+    def head(self, x):
+        """[B, 512, h, w] features -> [B, F, 2] fiducial points."""
+        x = F.relu(self.localization_fc1["0"](x.mean(dim=(2, 3))))
         return self.localization_fc2(x).view(x.shape[0], self.F, 2)
+
+    def forward(self, x):
+        for i in range(len(_UNITS)):
+            x = self.unit(i, x)
+        return self.head(x)
 
 
 class TPS_STN(nn.Module):
@@ -113,5 +128,5 @@ class TPS_STN(nn.Module):
         T = torch.matmul(inv_delta_C, cp)
         P_prime = torch.matmul(P_hat, T)  # [B, n, 2]
         grid = P_prime.view(B, self.out_h, self.out_w, 2).to(x.dtype)
-        return F.grid_sample(x, grid, mode="bilinear", padding_mode="border",
-                             align_corners=True)
+        out = grid_sample(x.permute(0, 2, 3, 1), grid, padding_mode="border", align_corners=True)
+        return out.permute(0, 3, 1, 2).to(x.dtype)

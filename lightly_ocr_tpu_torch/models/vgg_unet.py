@@ -26,7 +26,9 @@ from torch import nn
 
 from lightly_ocr_tpu_torch.models.layers import (
     BatchNorm2d,
+    Conv2d,
     QuantConv,
+    compute_dtype,
     int8_scale,
     int_mm,
     max_pool,
@@ -118,11 +120,43 @@ class VggBackbone(nn.Module):
         return outs
 
 
+def _resize_weights(n_in: int, n_out: int, device) -> torch.Tensor:
+    """[n_in, n_out] float32 weights of ``jax.image.resize``'s bilinear
+    (triangle kernel, half-pixel centres, no antialias), computed as
+    ``jax._src.image.scale.compute_weight_mat`` computes them."""
+    f32 = torch.float32
+    sample = (torch.arange(n_out, dtype=f32, device=device) + 0.5) * (1.0 / (n_out / n_in)) - 0.5
+    taps = torch.arange(n_in, dtype=f32, device=device)[:, None]
+    w = torch.clamp(1.0 - (sample[None, :] - taps).abs(), min=0.0)
+    total = w.sum(0, keepdim=True)
+    w = torch.where(total.abs() > 1000.0 * torch.finfo(f32).eps, w / torch.where(total != 0, total, 1.0), 0.0)
+    return torch.where((sample >= -0.5) & (sample <= n_in - 0.5), w, 0.0)
+
+
 def _upsample_to(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
-    """Bilinear resize, half-pixel centres (``jax.image.resize`` bilinear)."""
-    return F.interpolate(
-        x, size=(h, w), mode="bilinear", align_corners=False, antialias=False
-    )
+    """Bilinear resize of NCHW ``x`` to ``h`` x ``w``, half-pixel centres
+    (``jax.image.resize`` bilinear).  In float32 and wider it is
+    ``F.interpolate``.  In a narrower dtype it runs as ``jax.image.resize``
+    does there: one contraction a resized axis with the weights in that
+    dtype, each rounded to it, the axes in the order of ``jnp.einsum``'s
+    cheapest path (the height first on a tie), so a bfloat16 step rounds
+    where the JAX package's does."""
+    if torch.finfo(x.dtype).bits >= 32:
+        return F.interpolate(x, size=(h, w), mode="bilinear", align_corners=False, antialias=False)
+    H, W = x.shape[-2:]
+
+    def along_h(t):
+        return torch.einsum("nchw,hk->nckw", t, _resize_weights(H, h, t.device).to(t.dtype))
+
+    def along_w(t):
+        return torch.einsum("nchw,wk->nchk", t, _resize_weights(W, w, t.device).to(t.dtype))
+
+    steps = [f for f, resized in ((along_h, h != H), (along_w, w != W)) if resized]
+    if len(steps) == 2 and H * W * (h - w) + h * w * (W - H) > 0:
+        steps.reverse()  # contracting the width first costs less
+    for f in steps:
+        x = f(x)
+    return x
 
 
 class UpConv(nn.Module):
@@ -183,11 +217,11 @@ class UpConv(nn.Module):
 class _Head(nn.ModuleDict):
     def __init__(self):
         super().__init__({
-            "0": nn.Conv2d(32, 32, 3, padding=1),
-            "2": nn.Conv2d(32, 32, 3, padding=1),
-            "4": nn.Conv2d(32, 16, 3, padding=1),
-            "6": nn.Conv2d(16, 16, 1),
-            "8": nn.Conv2d(16, 2, 1),
+            "0": Conv2d(32, 32, 3, padding=1),
+            "2": Conv2d(32, 32, 3, padding=1),
+            "4": Conv2d(32, 16, 3, padding=1),
+            "6": Conv2d(16, 16, 1),
+            "8": Conv2d(16, 2, 1),
         })
 
     def forward(self, x):
@@ -197,11 +231,16 @@ class _Head(nn.ModuleDict):
 
 
 class VGG_UNet(nn.Module):
-    """CRAFT detector graph (``ocr/model.py:9-61``)."""
+    """CRAFT detector graph (``ocr/model.py:9-61``).  ``dtype`` is the
+    compute dtype on float32 parameters (:func:`~lightly_ocr_tpu_torch.
+    models.layers.compute_dtype`), the JAX model's ``dtype``: the canvas
+    is cast to it, and so are the convs' parameters, the upsampling and
+    the concatenations run in it."""
 
-    def __init__(self, quant: bool = False):
+    def __init__(self, quant: bool = False, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.quant = quant
+        self.dtype = dtype
         self.basenet = VggBackbone(quant)
         self.upconv1 = UpConv(1024 + 512, 512, 256, quant)
         self.upconv2 = UpConv(256 + 512, 256, 128, quant)
@@ -209,9 +248,9 @@ class VGG_UNet(nn.Module):
         self.upconv4 = UpConv(64 + 128, 64, 32, quant)
         self.conv_cls = _Head()
 
-    @staticmethod
-    def _nchw(x):
-        return x.permute(0, 3, 1, 2)
+    def _nchw(self, x):
+        """NHWC -> NCHW in the compute dtype."""
+        return x.permute(0, 3, 1, 2).to(compute_dtype(self))
 
     @staticmethod
     def _nhwc(x):
@@ -227,8 +266,7 @@ class VGG_UNet(nn.Module):
                 "backbone conv.  Train in float and enable quant_int8 only "
                 "for serving."
             )
-        p = next(self.parameters())
-        s = self.basenet(self._nchw(x).to(p.dtype))
+        s = self.basenet(self._nchw(x))
         y = self.upconv1(torch.cat([s["fc7"], s["slice4"]], 1))
         for up, skip in ((self.upconv2, "slice3"), (self.upconv3, "slice2"),
                          (self.upconv4, "slice1")):
@@ -241,8 +279,7 @@ class VGG_UNet(nn.Module):
         """[B, H, W, 3] canvas -> conv1_1 + BN + ReLU [B, H, W, 64] NHWC,
         the input of the fused stem kernels (the JAX package's
         ``VggStemPrefix``)."""
-        p = next(self.parameters())
-        y = self.basenet.slice1(self._nchw(x).to(p.dtype), _SLICE1_PREFIX)
+        y = self.basenet.slice1(self._nchw(x), _SLICE1_PREFIX)
         return self._nhwc(y)
 
     def trunk(self, x: torch.Tensor, resume: str | None = None, seam: bool = True):
@@ -262,9 +299,8 @@ class VGG_UNet(nn.Module):
         (``VGG_UNetTrunk(seam=False)``): every decoder block on its concat,
         and the upsampled upconv3 output concatenated with slice1, ``[B,
         H/2, W/2, 192]`` NHWC, the input of the row-packed tail."""
-        p = next(self.parameters())
         ops = None if resume is None else _SLICE1_RESUME[resume]
-        s = self.basenet(self._nchw(x).to(p.dtype), ops)
+        s = self.basenet(self._nchw(x), ops)
         if not seam:
             y = self.upconv1(torch.cat([s["fc7"], s["slice4"]], 1))
             for up, skip in ((self.upconv2, "slice3"), (self.upconv3, "slice2")):

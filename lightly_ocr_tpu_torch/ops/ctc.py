@@ -6,7 +6,10 @@ Port of ``lightly_ocr_tpu/ops/ctc.py`` (``ctc_loss``,
 ``ctc_greedy_decode``, ``ctc_beam_search_decode``).  The JAX package
 computes all of them in XLA (no Pallas kernel), so stock PyTorch ops serve
 here: the loss is ``F.ctc_loss``, whose forward equals the JAX package's
-log-semiring recursion to round-off.
+log-semiring recursion to round-off.  On log-probabilities narrower than
+float32 (a bfloat16 step) it is that recursion itself, in their dtype, as
+XLA runs the JAX package's (:func:`_ctc_forward_reduced`): ``F.ctc_loss``
+takes float32 and float64 only.
 """
 from __future__ import annotations
 
@@ -42,6 +45,37 @@ def ctc_forward_logprob(log_probs: torch.Tensor, labels: torch.Tensor,
                        blank=0, reduction="none", zero_infinity=False)
 
 
+def _ctc_forward_reduced(log_probs: torch.Tensor, labels: torch.Tensor,
+                         input_lengths: torch.Tensor, label_lengths: torch.Tensor) -> torch.Tensor:
+    """Per-sample log P(labels | log_probs), [B], by the JAX package's
+    ``ctc_forward_logprob`` step for step in ``log_probs``' dtype (its
+    alphas start weakly typed, so ``lax.scan`` carries them in the
+    emissions' dtype): ``_NEG_INF`` where no alignment exists.
+    Differentiable."""
+    B, T, _ = log_probs.shape
+    S = 2 * labels.shape[1] + 1
+    dev = log_probs.device
+    labels, input_lengths, label_lengths = (t.to(dev, torch.long)
+                                            for t in (labels, input_lengths, label_lengths))
+    ext = torch.zeros((B, S), dtype=torch.long, device=dev)
+    ext[:, 1::2] = labels
+    pos = torch.arange(S, device=dev)[None]
+    valid = pos <= 2 * label_lengths[:, None]
+    can_skip = (pos % 2 == 1) & (ext != F.pad(ext, (2, 0))[:, :S]) & (pos >= 2)
+    emit = log_probs.gather(2, ext[:, None, :].expand(B, T, S))  # [B, T, S]
+    first = (pos == 1) & (label_lengths[:, None] > 0)
+    alpha = torch.where(pos == 0, emit[:, 0, :1], torch.where(first, emit[:, 0, 1:2], _NEG_INF))
+    alpha = torch.where(valid, alpha, _NEG_INF)
+    for t in range(1, T):
+        a1 = F.pad(alpha, (1, 0), value=_NEG_INF)[:, :S]
+        a2 = torch.where(can_skip, F.pad(alpha, (2, 0), value=_NEG_INF)[:, :S], _NEG_INF)
+        new = torch.where(valid, _logsumexp2(_logsumexp2(alpha, a1), a2) + emit[:, t], _NEG_INF)
+        alpha = torch.where((t < input_lengths)[:, None], new, alpha)
+    a_blank = alpha.gather(1, (2 * label_lengths)[:, None])[:, 0]
+    a_last = alpha.gather(1, (2 * label_lengths - 1).clamp_min(0)[:, None])[:, 0]
+    return _logsumexp2(a_blank, torch.where(label_lengths > 0, a_last, _NEG_INF))
+
+
 def ctc_loss(log_probs: torch.Tensor, labels: torch.Tensor, input_lengths: torch.Tensor,
              label_lengths: torch.Tensor, reduction: str = "mean",
              zero_infinity: bool = True) -> torch.Tensor:
@@ -55,8 +89,18 @@ def ctc_loss(log_probs: torch.Tensor, labels: torch.Tensor, input_lengths: torch
     upstream of that, not as a gradient of arbitrary log-probabilities."""
     if reduction not in ("none", "sum", "mean"):
         raise ValueError(f"unknown reduction {reduction!r}")
-    return F.ctc_loss(log_probs.transpose(0, 1), labels, input_lengths, label_lengths,
-                      blank=0, reduction=reduction, zero_infinity=zero_infinity)
+    if torch.finfo(log_probs.dtype).bits >= 32:
+        return F.ctc_loss(log_probs.transpose(0, 1), labels, input_lengths, label_lengths,
+                          blank=0, reduction=reduction, zero_infinity=zero_infinity)
+    # the JAX package's loss in the log-probabilities' dtype
+    nll = -_ctc_forward_reduced(log_probs, labels, input_lengths, label_lengths)
+    if zero_infinity:
+        nll = torch.where(nll >= -_NEG_INF * 0.5, 0.0, nll)
+    if reduction == "none":
+        return nll
+    if reduction == "sum":
+        return nll.sum()
+    return (nll / label_lengths.to(nll.device).clamp_min(1).to(nll.dtype)).mean()
 
 
 def cross_entropy_ignore_index(logits: torch.Tensor, targets: torch.Tensor,

@@ -14,6 +14,7 @@
 * ``resize_normalize`` — the recognizer feed of one whole crop: PIL
   bicubic with antialias, saturated, scaled to [-1, 1]
   (``dataset.py:43-47``), as the matmul crop of :mod:`.crop` computes it.
+* ``adjust_box_coordinates`` — score-map box corners to image space.
 """
 from __future__ import annotations
 
@@ -147,3 +148,14 @@ def resize_normalize(crops: torch.Tensor, height: int = 32, width: int = 100) ->
     B, H, W = crops.shape
     whole = torch.tensor([0.0, 0.0, H, W], device=crops.device).expand(B, 1, 4)
     return crop_resize_normalize_matmul(crops.float(), whole, height, width)[:, 0]
+
+
+def adjust_box_coordinates(boxes, ratio_w: float, ratio_h: float,
+                           ratio_net: float = 2.0) -> torch.Tensor:
+    """Scale heatmap-space box corners ``[..., 2]`` (x, y) back to the
+    original image's space (``det_utils.py:259-265``; ``ratio_net`` 2 is
+    the detector's half resolution)."""
+    boxes = torch.as_tensor(boxes)
+    scale = torch.tensor([ratio_w * ratio_net, ratio_h * ratio_net], dtype=torch.float32,
+                         device=boxes.device)
+    return boxes * scale

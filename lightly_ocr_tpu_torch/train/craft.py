@@ -18,8 +18,11 @@ As the JAX package:
   negatives of the whole batch, found by 16 halvings of the value axis (the
   JAX package's approximate k-th value, not the exact one of ``topk``),
   positives and negatives averaged apart.  No host sync.
-* **Step**: forward in ``train()`` (BatchNorm on the batch's statistics),
-  float32 maps, backward, optax's global-norm clip at 5, Adam.  Parameters
+* **Step**: forward in ``train()`` (BatchNorm on the batch's statistics)
+  in the model's compute dtype on float32 parameters
+  (``init_craft_state(dtype=...)``; :func:`train_craft` and the CLI train
+  in float32, as the JAX package's), float32 maps, backward, optax's
+  global-norm clip at 5, Adam.  Parameters
   under a ``basenet`` slice named in ``freeze`` get no update: their
   gradients are zeroed before the clip, so they are out of its norm (the
   reference's ``requires_grad=False``, ``ocr/modules/vgg_bn.py:57-60``);
@@ -61,7 +64,12 @@ from lightly_ocr_tpu_torch.parallel.launch import backend_for, from_torchrun, sp
 from lightly_ocr_tpu_torch.parallel.mesh import launched_by_torchrun, mesh_groups, visible_devices
 from lightly_ocr_tpu_torch.parallel.tensor import shard_module, sharded_mask
 from lightly_ocr_tpu_torch.serving.batch import resolve_device
-from lightly_ocr_tpu_torch.train.train_step import TrainState, clip_by_global_norm_, global_norm
+from lightly_ocr_tpu_torch.train.train_step import (
+    TrainState,
+    clip_by_global_norm_,
+    global_norm,
+    refuse_reduced_dtype_over_groups,
+)
 
 # ---------------------------------------------------------------------------
 # Synthetic data with exact gaussian supervision (numpy, as the JAX package)
@@ -332,23 +340,30 @@ def init_craft_state(
     init_backbone=None,
     freeze: Sequence[str] = (),
     group=None,
+    dtype: torch.dtype = torch.float32,
 ) -> tuple[VGG_UNet, TrainState]:
-    """A float32 :class:`VGG_UNet` with flax's seeded training
-    initialisation (:func:`init_train_params`), slices 1-4 from
+    """A :class:`VGG_UNet` with float32 parameters computing in ``dtype``
+    (the JAX package's ``init_craft_state(dtype=...)``), flax's seeded
+    training initialisation (:func:`init_train_params`), slices 1-4 from
     ``init_backbone`` where given (:func:`load_torchvision_backbone`), in
     ``train()`` on ``device`` (the card unless the caller asks for the CPU;
-    raises without one), and its Adam at step 0.  The optimizer holds every
-    parameter: ``freeze`` (checked here against the model's module names)
-    is applied by the step that :func:`make_craft_train_step` makes.  With
-    a model axis in ``group`` (a :class:`~lightly_ocr_tpu_torch.parallel.
-    mesh.MeshGroups`) the model holds this rank's slices."""
+    raises without one), and its float32 Adam at step 0.  The optimizer
+    holds every parameter: ``freeze`` (checked here against the model's
+    module names) is applied by the step that :func:`make_craft_train_step`
+    makes.  With a model axis in ``group`` (a :class:`~lightly_ocr_tpu_torch.
+    parallel.mesh.MeshGroups`) the model holds this rank's slices; a
+    reduced ``dtype`` with a group of more than one process raises
+    (:func:`~lightly_ocr_tpu_torch.train.train_step.
+    refuse_reduced_dtype_over_groups`)."""
+    groups = mesh_groups(group)
+    refuse_reduced_dtype_over_groups(dtype, groups)
     device = resolve_device(device)
-    model = init_train_params(VGG_UNet(), torch.Generator().manual_seed(int(seed)))
+    model = init_train_params(VGG_UNet(dtype=dtype), torch.Generator().manual_seed(int(seed)))
     frozen_mask(model, freeze)
     if init_backbone is not None:
         load_torchvision_backbone(model, init_backbone)
     model.to(device).train()
-    shard_module(model, mesh_groups(group))
+    shard_module(model, groups)
     return model, TrainState(model, make_craft_optimizer(model.parameters(), lr))
 
 

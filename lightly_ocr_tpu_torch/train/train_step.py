@@ -48,7 +48,7 @@ from lightly_ocr_tpu_torch.parallel.collectives import (
     is_split,
     sync_replicated_grads_,
 )
-from lightly_ocr_tpu_torch.parallel.mesh import mesh_groups
+from lightly_ocr_tpu_torch.parallel.mesh import MeshGroups, mesh_groups
 from lightly_ocr_tpu_torch.parallel.tensor import shard_module, sharded_mask
 from lightly_ocr_tpu_torch.serving.batch import resolve_device
 
@@ -109,14 +109,33 @@ def flatten_lstms(model: torch.nn.Module) -> None:
             m.flatten_parameters()
 
 
-def init_train_state(cfg: Config, seed: int, device="cuda", group=None) -> tuple[CRNNet, TrainState]:
+def refuse_reduced_dtype_over_groups(dtype: torch.dtype, groups: MeshGroups) -> None:
+    """Raise ``ValueError`` for a reduced compute dtype (fewer than 32 bits)
+    with more than one process in ``groups``: the JAX package has no public
+    path that shards a reduced-dtype state (its trainers build float32
+    ones).  float32 and float64 pass with any groups."""
+    if torch.finfo(dtype).bits < 32 and (groups.data_size > 1 or groups.model_size > 1):
+        raise ValueError(
+            f"compute dtype {dtype} with a {groups.data_size}x{groups.model_size} "
+            "(data x model) group: training in a reduced dtype runs in one process "
+            "only; train float32 over a group")
+
+
+def init_train_state(cfg: Config, seed: int, device="cuda", group=None,
+                     model: CRNNet | None = None) -> tuple[CRNNet, TrainState]:
     """A :class:`CRNNet` with the seeded training initialisation
     (:func:`init_train_params`), in training mode on ``device`` (the card
     unless the caller asks for the CPU; raises without one), and its
-    optimizer at step 0.  With a model axis in ``group`` (a
+    optimizer at step 0.  ``model`` (e.g. ``CRNNet(cfg, dtype=torch.
+    bfloat16)``) is the module to initialise, as the JAX package's
+    ``init_train_state(cfg, rng, model)``: its weights are drawn from
+    ``seed`` here, its parameters stay float32 and it computes in its
+    ``dtype``.  With a model axis in ``group`` (a
     :class:`~lightly_ocr_tpu_torch.parallel.mesh.MeshGroups`) the model
     holds this rank's slices (:func:`~lightly_ocr_tpu_torch.parallel.
-    tensor.shard_module`) and the optimizer steps on them."""
+    tensor.shard_module`) and the optimizer steps on them; a reduced
+    compute dtype with a group of more than one process raises
+    (:func:`refuse_reduced_dtype_over_groups`)."""
     if cfg.quant_int8:
         # the int8 rounding has zero gradient: the quantized convs would
         # silently stop learning.  int8 is a serving mode only.
@@ -125,10 +144,13 @@ def init_train_state(cfg: Config, seed: int, device="cuda", group=None) -> tuple
             "rounding blocks gradients) — train in float and flip "
             "quant_int8 on at serving time"
         )
+    groups = mesh_groups(group)
+    model = CRNNet(cfg) if model is None else model
+    refuse_reduced_dtype_over_groups(model.dtype, groups)
     device = resolve_device(device)
-    model = init_train_params(CRNNet(cfg), torch.Generator().manual_seed(int(seed)))
+    init_train_params(model.float(), torch.Generator().manual_seed(int(seed)))
     model.to(device).train()
-    shard_module(model, mesh_groups(group))
+    shard_module(model, groups)
     flatten_lstms(model)
     return model, TrainState(model, make_optimizer(cfg, model.parameters()))
 
