@@ -29,6 +29,8 @@ from typing import Iterator
 
 import numpy as np
 
+from lightly_ocr_tpu_torch.utils.profiling import annotate
+
 _PRECISION_BITS = 32 - 8 - 2  # PIL's fixed point for 8-bit images
 
 
@@ -228,8 +230,11 @@ class DataLoader:
         return len(self.dataset) // self.batch_size
 
     def _load_batch(self, idx: np.ndarray):
-        samples = [self.dataset[int(i)] for i in idx[self.rows]]
-        return align_collate(samples, self.height, self.width, self.keep_ratio)
+        with annotate("loader.batch"):
+            with annotate("loader.decode"):
+                samples = [self.dataset[int(i)] for i in idx[self.rows]]
+            with annotate("loader.collate"):
+                return align_collate(samples, self.height, self.width, self.keep_ratio)
 
     def __iter__(self):
         batches = list(self.sampler)
@@ -263,7 +268,7 @@ class DataLoader:
             t.start()
         try:
             for bi in range(len(batches)):
-                with results_lock:
+                with annotate("loader.wait"), results_lock:
                     while bi not in results:
                         results_lock.wait(timeout=60.0)
                     batch = results.pop(bi)

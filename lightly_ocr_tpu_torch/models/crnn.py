@@ -24,6 +24,7 @@ from lightly_ocr_tpu_torch.models.layers import Linear, compute_dtype, init_trai
 from lightly_ocr_tpu_torch.models.lstm import SeqModeling
 from lightly_ocr_tpu_torch.models.resnet import ResNet50v2
 from lightly_ocr_tpu_torch.models.tps import TPS_STN
+from lightly_ocr_tpu_torch.utils.profiling import annotate
 
 
 class CRNNet(nn.Module):
@@ -80,13 +81,15 @@ class CRNNet(nn.Module):
         x = images.permute(0, 3, 1, 2).to(compute_dtype(self))
         if self.Transformation is not None:
             x = self.Transformation(x)
-        x = self.FeatureExtraction(x)  # [B, C, H', W']
+        with annotate("crnn.features"):
+            x = self.FeatureExtraction(x)  # [B, C, H', W']
         x = x.mean(dim=2).transpose(1, 2)  # mean over H -> [B, W', C]
         if self.SequenceModeling is not None:
             x = self.SequenceModeling(x)
-        if self.cfg.prediction == "CTC":
-            return self.Prediction(x)
-        return self.Prediction(x, beam_width, lm, text=text)
+        with annotate("crnn.prediction"):
+            if self.cfg.prediction == "CTC":
+                return self.Prediction(x)
+            return self.Prediction(x, beam_width, lm, text=text)
 
 
 def init_crnn(cfg: Config, seed: int, dtype: torch.dtype = torch.float32,

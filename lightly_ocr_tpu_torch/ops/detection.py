@@ -24,6 +24,8 @@ import math
 
 import torch
 
+from lightly_ocr_tpu_torch.utils.profiling import SYNC, annotate
+
 _BIG = 2**30
 _INF = 1e30
 
@@ -80,7 +82,11 @@ def get_det_boxes(
 
     def reduce(mask, src, how, init):
         out = torch.full((nb,), init, dtype=f32, device=dev)
-        out.scatter_reduce_(0, bins[mask], src[mask], how, include_self=True)
+        with annotate(SYNC):  # a boolean mask's index waits for the card
+            index = bins[mask]
+        with annotate(SYNC):
+            values = src[mask]
+        out.scatter_reduce_(0, index, values, how, include_self=True)
         return out.view(B, K2, H)
 
     hot_src = (textmap >= text_threshold).to(f32).view(B, HW)

@@ -25,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from lightly_ocr_tpu_torch.ops.crop import crop_resize_normalize_matmul
+from lightly_ocr_tpu_torch.utils.profiling import SYNC, annotate
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_VAR = (0.229, 0.224, 0.225)
@@ -33,8 +34,10 @@ LUMA = (0.299, 0.587, 0.114)  # ITU-R 601-2, PIL's "L" conversion
 
 def normalize_mean_variance(img: torch.Tensor) -> torch.Tensor:
     """[..., 3] uint8-range RGB -> normalized float32."""
-    mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=img.device)
-    var = torch.tensor(IMAGENET_VAR, dtype=torch.float32, device=img.device)
+    with annotate(SYNC):  # a blocking copy to the card
+        mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=img.device)
+    with annotate(SYNC):
+        var = torch.tensor(IMAGENET_VAR, dtype=torch.float32, device=img.device)
     return (img.float() - mean * 255.0) / (var * 255.0)
 
 

@@ -52,6 +52,7 @@ import torch
 import torch.nn.functional as F
 
 from lightly_ocr_tpu_torch.ops import native
+from lightly_ocr_tpu_torch.utils.profiling import annotate
 
 
 class TailParams(NamedTuple):
@@ -191,7 +192,7 @@ def seam_tail(ya: torch.Tensor, t: torch.Tensor, p: TailParams) -> torch.Tensor:
     out = torch.empty((B, H2, 2, W2), dtype=torch.float32, device=t.device)
     args = [t, ya, p.k1b, p.b1, p.wa, p.ba, p.w0, p.b0, p.w2, p.b2,
             p.w4, p.b4, p.w6, p.b6, p.w8, p.b8, out]
-    with torch.profiler.record_function("seam_tail"):  # the span a trace names it by
+    with annotate("seam_tail"):  # the span a trace names it by
         err = lib.seam_tail_launch(
             *[native.ptr(a) for a in args], B, H2, W2, native.stream(t.device)
         )

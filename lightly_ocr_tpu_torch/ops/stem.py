@@ -63,6 +63,7 @@ from lightly_ocr_tpu_torch.models.layers import (
 )
 from lightly_ocr_tpu_torch.ops import native
 from lightly_ocr_tpu_torch.ops.seam_tail import fold_bn
+from lightly_ocr_tpu_torch.utils.profiling import annotate
 
 
 class StemParams(NamedTuple):
@@ -312,7 +313,7 @@ def _pooled(x0: torch.Tensor, p: StemParams) -> torch.Tensor:
     (``conv12_pool_bf16``)."""
     B, H, W, _ = x0.shape
     out = torch.empty((B, H // 2, W // 2, 64), dtype=torch.bfloat16, device=x0.device)
-    with torch.profiler.record_function("conv12_pool"):  # the span a trace names it by
+    with annotate("conv12_pool"):  # the span a trace names it by
         native.check(_lib().conv12_pool_bf16(*map(native.ptr, (x0, p.w1, p.b1, out)), B, H, W,
                                              native.stream(x0.device)), "conv12_pool_bf16")
     return out

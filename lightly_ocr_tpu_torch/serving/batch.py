@@ -104,6 +104,7 @@ from lightly_ocr_tpu_torch.ops.stem import (
 )
 from lightly_ocr_tpu_torch.parallel.mesh import shard_batch
 from lightly_ocr_tpu_torch.text.converters import build_converter
+from lightly_ocr_tpu_torch.utils.profiling import SYNC, annotate
 
 _LUMA = np.asarray(LUMA, np.float32)
 log = logging.getLogger(__name__)
@@ -250,20 +251,22 @@ class BatchedOCR:
     def detector_scores(self, canvases: torch.Tensor):
         """[B, H, W, 3] normalized canvases -> (region, affinity) f32
         [B, H/2, W/2] each, by the plan of the module docstring."""
-        if not self.use_tail:
-            y, _ = self.det_net(canvases)
-            return y[..., 0].float(), y[..., 1].float()
-        front = self.front_for(*canvases.shape[1:3])
-        if front is not None:
-            x0 = self.prefix(canvases)
-            trunk = self.det_net.trunk(front(x0, self.stem), resume=self.resume, seam=self.seam)
-        else:
-            trunk = self.det_net.trunk(canvases, seam=self.seam)
-        if not self.seam:
-            y = tail_scores_rowpacked(trunk, self.tail)  # [B, H2, W2, 2]
-            return y[..., 0], y[..., 1]
-        y = fused_tail_scores_cs_seam(self.tail, *trunk)  # [B, H2, 2, W2]
-        return y[:, :, 0], y[:, :, 1]
+        with annotate("ocr.detector"):
+            if not self.use_tail:
+                y, _ = self.det_net(canvases)
+                return y[..., 0].float(), y[..., 1].float()
+            front = self.front_for(*canvases.shape[1:3])
+            if front is not None:
+                with annotate("ocr.detector.prefix"):
+                    x0 = self.prefix(canvases)
+                trunk = self.det_net.trunk(front(x0, self.stem), resume=self.resume, seam=self.seam)
+            else:
+                trunk = self.det_net.trunk(canvases, seam=self.seam)
+            if not self.seam:
+                y = tail_scores_rowpacked(trunk, self.tail)  # [B, H2, W2, 2]
+                return y[..., 0], y[..., 1]
+            y = fused_tail_scores_cs_seam(self.tail, *trunk)  # [B, H2, 2, W2]
+            return y[:, :, 0], y[:, :, 1]
 
     def fused_impls(self):
         """(stem conv, tail, whether the tail is the channels-second seam
@@ -303,39 +306,42 @@ class BatchedOCR:
         1/plan.ratio per image, truncated per corner, clipped to each
         image's true extent; gray may be zero-padded up to a shared
         bucket).  Invalid rows get the dummy rect (0, 0, 1, 1)."""
-        cfg = self.cfg
-        fg = (tmaps > cfg.low_text) | (lmaps > cfg.link_threshold)
-        labels = label_components(fg.contiguous())
-        boxes, valid = get_det_boxes(
-            tmaps, lmaps, labels,
-            text_threshold=cfg.text_threshold,
-            link_threshold=cfg.link_threshold,
-            low_text=cfg.low_text,
-            max_boxes=self.boxes_per_image,
-        )
-        scaled = torch.trunc(boxes * (2.0 * inv_ratio[:, None, None, None]))
-        c0 = scaled[..., 0].amin(2)
-        r0 = scaled[..., 1].amin(2)
-        c1 = scaled[..., 0].amax(2)
-        r1 = scaled[..., 1].amax(2)
-        H0 = extents[:, 0:1]
-        W0 = extents[:, 1:2]
-        r0 = torch.minimum(torch.clamp(r0, min=0.0), H0)
-        r1 = torch.minimum(torch.clamp(r1, min=0.0), H0)
-        c0 = torch.minimum(torch.clamp(c0, min=0.0), W0)
-        c1 = torch.minimum(torch.clamp(c1, min=0.0), W0)
-        valid = valid & (r1 > r0) & (c1 > c0)
-        rects = torch.stack([r0, c0, r1, c1], -1)
-        dummy = torch.tensor([0.0, 0.0, 1.0, 1.0], device=rects.device)
-        return torch.where(valid[..., None], rects, dummy), valid
+        with annotate("ocr.boxes"):
+            cfg = self.cfg
+            fg = (tmaps > cfg.low_text) | (lmaps > cfg.link_threshold)
+            labels = label_components(fg.contiguous())
+            boxes, valid = get_det_boxes(
+                tmaps, lmaps, labels,
+                text_threshold=cfg.text_threshold,
+                link_threshold=cfg.link_threshold,
+                low_text=cfg.low_text,
+                max_boxes=self.boxes_per_image,
+            )
+            scaled = torch.trunc(boxes * (2.0 * inv_ratio[:, None, None, None]))
+            c0 = scaled[..., 0].amin(2)
+            r0 = scaled[..., 1].amin(2)
+            c1 = scaled[..., 0].amax(2)
+            r1 = scaled[..., 1].amax(2)
+            H0 = extents[:, 0:1]
+            W0 = extents[:, 1:2]
+            r0 = torch.minimum(torch.clamp(r0, min=0.0), H0)
+            r1 = torch.minimum(torch.clamp(r1, min=0.0), H0)
+            c0 = torch.minimum(torch.clamp(c0, min=0.0), W0)
+            c1 = torch.minimum(torch.clamp(c1, min=0.0), W0)
+            valid = valid & (r1 > r0) & (c1 > c0)
+            rects = torch.stack([r0, c0, r1, c1], -1)
+            with annotate(SYNC):
+                dummy = torch.tensor([0.0, 0.0, 1.0, 1.0], device=rects.device)
+            return torch.where(valid[..., None], rects, dummy), valid
 
     def recognize(self, gray, rects):
         """gray [B, H0, W0] and rects [B, M, 4] -> (pred_idx [B, M, T],
         confidence [B, M] f32): bicubic crops, one CRNN dispatch over the
         B * M crops, the decode of ``cfg`` (with the LM prior, if any)."""
         B, M = rects.shape[:2]
-        idx, conf = decode_crops(self.rec_net, self.crops(gray, rects), self.cfg, self.lm)
-        return idx.reshape(B, M, -1), conf.float().reshape(B, M)
+        with annotate("ocr.recognize"):
+            idx, conf = decode_crops(self.rec_net, self.crops(gray, rects), self.cfg, self.lm)
+            return idx.reshape(B, M, -1), conf.float().reshape(B, M)
 
     def crops(self, gray, rects):
         """[B, H0, W0] gray, [B, M, 4] rects -> [B * M, height, width, 1]
@@ -409,77 +415,90 @@ class BatchedOCR:
         the mesh's data axis (pad rows are blank canvases with a 1x1
         extent, so they yield no valid box)."""
         cfg, dev = self.cfg, self.device
-        B = 1 << (len(images) - 1).bit_length()
-        n = len(self.replicas)  # a mesh's data axis must divide the batch
-        B = -(-B // n) * n
-        canv = torch.zeros((B, *cb, 3), dtype=torch.float32, device=dev)
-        grays = np.zeros((B, *gb), np.float32)
-        inv_ratios = np.ones((B,), np.float32)
-        extents = np.ones((B, 2), np.float32)
-        for j, image in enumerate(images):
-            img = np.asarray(image, np.float32)
-            h, w = img.shape[:2]
-            plan = plan_aspect_resize(h, w, cfg.canvas_size, cfg.magnify_ratio,
-                                      canvas_bucket=cb)
-            canv[j] = make_detector_input(torch.from_numpy(img).to(dev), plan)
-            grays[j, :h, :w] = img @ _LUMA
-            inv_ratios[j] = 1.0 / plan.ratio
-            extents[j] = (float(h), float(w))
-        return (canv, torch.from_numpy(grays).to(dev),
-                torch.from_numpy(inv_ratios).to(dev), torch.from_numpy(extents).to(dev))
+        with annotate("ocr.prepare"):
+            B = 1 << (len(images) - 1).bit_length()
+            n = len(self.replicas)  # a mesh's data axis must divide the batch
+            B = -(-B // n) * n
+            canv = torch.zeros((B, *cb, 3), dtype=torch.float32, device=dev)
+            grays = np.zeros((B, *gb), np.float32)
+            inv_ratios = np.ones((B,), np.float32)
+            extents = np.ones((B, 2), np.float32)
+            for j, image in enumerate(images):
+                img = np.asarray(image, np.float32)
+                h, w = img.shape[:2]
+                plan = plan_aspect_resize(h, w, cfg.canvas_size, cfg.magnify_ratio,
+                                          canvas_bucket=cb)
+                # a blocking copy from pageable memory: the host waits for the card
+                with annotate(SYNC):
+                    x = torch.from_numpy(img).to(dev)
+                canv[j] = make_detector_input(x, plan)
+                grays[j, :h, :w] = img @ _LUMA
+                inv_ratios[j] = 1.0 / plan.ratio
+                extents[j] = (float(h), float(w))
+            args = [canv]
+            for a in (grays, inv_ratios, extents):
+                with annotate(SYNC):
+                    args.append(torch.from_numpy(a).to(dev))
+            return tuple(args)
 
     def run_images(self, images: list) -> list[list[dict]]:
         """RGB uint8 images of mixed sizes -> per image [{text, confidence,
         rect}], one dispatch per (canvas bucket, gray bucket) group."""
         results: list = [None] * len(images)
         for (cb, gb), idxs in self.group(images).items():
-            out = self(*self.prepare([images[i] for i in idxs], cb, gb))
-            for i, items in zip(idxs, self.decode(out)):
-                results[i] = items
+            with annotate("ocr.dispatch"):
+                out = self(*self.prepare([images[i] for i in idxs], cb, gb))
+                for i, items in zip(idxs, self.decode(out)):
+                    results[i] = items
         return results
 
     def decode(self, out: dict) -> list[list[dict]]:
         """Device outputs -> per image [{text, confidence, rect}]; the
         character lookup, the CTC collapse and the EOS stops are vectorised
         over [B, M, T]."""
-        valid = out["valid"].cpu().numpy()
-        idx = out["pred_idx"].cpu().numpy()
-        conf = out["confidence"].cpu().numpy()
-        rects = out["rects"].cpu().numpy()
-        B, M, T = idx.shape
-        ctc = self.cfg.prediction == "CTC"
-        chars = np.ascontiguousarray(self._chartab[idx])
-        if ctc and self.cfg.ctc_decode == "beam":
-            # beam labels are final: drop the blank padding only (collapsing
-            # again would eat genuine double letters)
-            keep = idx != 0
-        elif ctc:
-            # greedy collapse: keep frames that are not blank and differ
-            # from the frame before
-            prev = np.concatenate([np.full((B, M, 1), -1, idx.dtype), idx[..., :-1]], -1)
-            keep = (idx != 0) & (idx != prev)
-        else:
-            full = chars.view(f"<U{T}")[..., 0]  # [B, M] full strings
-            eos = idx == self.converter.eos_index
-            stop = np.where(eos.any(-1), eos.argmax(-1), T)
-            # '[GO]' (index 0) is a multi-char token the '<U1' table
-            # truncates; rows that emit it before EOS take the converter's
-            # own decode
-            go_before_stop = ((idx == 0) & (np.arange(T) < stop[..., None])).any(-1)
-        results = []
-        for b in range(B):
-            items = []
-            for m in np.nonzero(valid[b])[0]:
-                if ctc:
-                    text = "".join(chars[b, m][keep[b, m]])
-                elif go_before_stop[b, m]:
-                    text = self.converter.decode_trimmed(idx[b, m][None])[0]
-                else:
-                    text = full[b, m][: stop[b, m]]
-                items.append({
-                    "text": text,
-                    "confidence": float(conf[b, m]),
-                    "rect": rects[b, m].tolist(),
-                })
-            results.append(items)
-        return results
+        with annotate("ocr.decode"):
+            with annotate(SYNC):
+                valid = out["valid"].cpu().numpy()
+            with annotate(SYNC):
+                idx = out["pred_idx"].cpu().numpy()
+            with annotate(SYNC):
+                conf = out["confidence"].cpu().numpy()
+            with annotate(SYNC):
+                rects = out["rects"].cpu().numpy()
+            B, M, T = idx.shape
+            ctc = self.cfg.prediction == "CTC"
+            chars = np.ascontiguousarray(self._chartab[idx])
+            if ctc and self.cfg.ctc_decode == "beam":
+                # beam labels are final: drop the blank padding only (collapsing
+                # again would eat genuine double letters)
+                keep = idx != 0
+            elif ctc:
+                # greedy collapse: keep frames that are not blank and differ
+                # from the frame before
+                prev = np.concatenate([np.full((B, M, 1), -1, idx.dtype), idx[..., :-1]], -1)
+                keep = (idx != 0) & (idx != prev)
+            else:
+                full = chars.view(f"<U{T}")[..., 0]  # [B, M] full strings
+                eos = idx == self.converter.eos_index
+                stop = np.where(eos.any(-1), eos.argmax(-1), T)
+                # '[GO]' (index 0) is a multi-char token the '<U1' table
+                # truncates; rows that emit it before EOS take the converter's
+                # own decode
+                go_before_stop = ((idx == 0) & (np.arange(T) < stop[..., None])).any(-1)
+            results = []
+            for b in range(B):
+                items = []
+                for m in np.nonzero(valid[b])[0]:
+                    if ctc:
+                        text = "".join(chars[b, m][keep[b, m]])
+                    elif go_before_stop[b, m]:
+                        text = self.converter.decode_trimmed(idx[b, m][None])[0]
+                    else:
+                        text = full[b, m][: stop[b, m]]
+                    items.append({
+                        "text": text,
+                        "confidence": float(conf[b, m]),
+                        "rect": rects[b, m].tolist(),
+                    })
+                results.append(items)
+            return results

@@ -30,6 +30,7 @@ import os
 import queue
 import re
 import threading
+import time
 import uuid
 from concurrent.futures import Future
 from socketserver import ThreadingMixIn
@@ -40,6 +41,7 @@ import numpy as np
 import torch
 
 from lightly_ocr_tpu_torch.serving.upload import decode_upload
+from lightly_ocr_tpu_torch.utils.profiling import count
 
 ALLOWED_EXT = {"png", "jpeg", "jpg"}
 log = logging.getLogger("lightly_ocr_tpu_torch.server")
@@ -62,13 +64,19 @@ class QueueFullError(RuntimeError):
 
 class InferenceWorker:
     """Single consumer thread that drains the request queue in batches of
-    up to ``max_batch``; ``max_queue=0`` makes the queue unbounded."""
+    up to ``max_batch``; ``max_queue=0`` makes the queue unbounded.
+
+    Counters (:func:`~lightly_ocr_tpu_torch.utils.profiling.counter_values`):
+    ``worker.queue_wait_s``, a request's seconds from :meth:`submit` to the
+    moment its batch is taken, and ``worker.batch_size``, the requests of
+    each batch taken."""
 
     def __init__(self, predict_fn: Callable, max_batch: int = 16,
                  max_queue: int = 64):
         self.predict_fn = predict_fn
         self.max_batch = max_batch
-        self.q: "queue.Queue[tuple[np.ndarray, Future]]" = queue.Queue(maxsize=max_queue)
+        # (image, future, submit time)
+        self.q: "queue.Queue[tuple[np.ndarray, Future, float]]" = queue.Queue(maxsize=max_queue)
         self._stop = threading.Event()
         self.thread = threading.Thread(target=self._loop, daemon=True)
         self.thread.start()
@@ -76,7 +84,7 @@ class InferenceWorker:
     def submit(self, image: np.ndarray) -> Future:
         fut: Future = Future()
         try:
-            self.q.put_nowait((image, fut))
+            self.q.put_nowait((image, fut, time.perf_counter()))
         except queue.Full:
             raise QueueFullError(
                 f"inference queue at max depth ({self.q.maxsize})"
@@ -88,7 +96,7 @@ class InferenceWorker:
         # the sentinel only wakes an idle loop; a draining loop re-checks
         # _stop on its own, so a full queue may skip it
         try:
-            self.q.put_nowait((None, None))
+            self.q.put_nowait((None, None, 0.0))
         except queue.Full:
             pass
         self.thread.join(timeout=5)
@@ -115,6 +123,10 @@ class InferenceWorker:
             batch = [c for c in candidates if c[1].set_running_or_notify_cancel()]
             if not batch:
                 continue
+            taken = time.perf_counter()
+            for b in batch:
+                count("worker.queue_wait_s", taken - b[2])
+            count("worker.batch_size", len(batch))
             futures = [b[1] for b in batch]
             try:
                 results = self.predict_fn([b[0] for b in batch])

@@ -51,6 +51,7 @@ from lightly_ocr_tpu_torch.parallel.collectives import (
 from lightly_ocr_tpu_torch.parallel.mesh import MeshGroups, mesh_groups
 from lightly_ocr_tpu_torch.parallel.tensor import shard_module, sharded_mask
 from lightly_ocr_tpu_torch.serving.batch import resolve_device
+from lightly_ocr_tpu_torch.utils.profiling import annotate
 
 
 @dataclass
@@ -222,32 +223,38 @@ def make_train_step(model: CRNNet, cfg: Config, group=None) -> Callable:
     sharded = sharded_mask(model)
 
     def train_step(state: TrainState, batch: dict):
-        model.train()
-        state.optimizer.zero_grad(set_to_none=True)
-        if accum == 1:
-            loss, _ = loss_fn(model, cfg, batch, cfg.train_remat, group)
-            loss.backward()
-        else:
-            losses = []
-            for i in range(accum):
-                micro, _ = loss_fn(model, cfg, {k: v[i] for k, v in batch.items()},
-                                   cfg.train_remat, group)
-                micro.backward()  # .grad sums the micro-batches' gradients
-                losses.append(micro.detach())
-            loss = torch.stack(losses).sum() / accum
-        kept = [i for i, p in enumerate(params) if p.grad is not None]
-        grads = [params[i].grad for i in kept]
-        if group is not None:
-            all_reduce_grads_(grads, group)
-            loss = global_sum(loss.detach(), group)
-        sync_replicated_grads_([params[i].grad for i in kept if not sharded[i]], groups)
-        if accum > 1:
-            torch._foreach_div_(grads, float(accum))
-        norm = clip_by_global_norm_(
-            grads, cfg.grad_clip, global_norm(grads, [sharded[i] for i in kept], groups.model))
-        state.optimizer.step()
-        state.step += 1
-        return state, {"loss": loss.detach(), "grad_norm": norm}
+        with annotate("train.step"):
+            model.train()
+            state.optimizer.zero_grad(set_to_none=True)
+            if accum == 1:
+                with annotate("train.forward"):
+                    loss, _ = loss_fn(model, cfg, batch, cfg.train_remat, group)
+                with annotate("train.backward"):
+                    loss.backward()
+            else:
+                losses = []
+                for i in range(accum):
+                    with annotate("train.forward"):
+                        micro, _ = loss_fn(model, cfg, {k: v[i] for k, v in batch.items()},
+                                           cfg.train_remat, group)
+                    with annotate("train.backward"):
+                        micro.backward()  # .grad sums the micro-batches' gradients
+                    losses.append(micro.detach())
+                loss = torch.stack(losses).sum() / accum
+            kept = [i for i, p in enumerate(params) if p.grad is not None]
+            grads = [params[i].grad for i in kept]
+            if group is not None:
+                all_reduce_grads_(grads, group)
+                loss = global_sum(loss.detach(), group)
+            sync_replicated_grads_([params[i].grad for i in kept if not sharded[i]], groups)
+            if accum > 1:
+                torch._foreach_div_(grads, float(accum))
+            with annotate("train.optimizer"):
+                norm = clip_by_global_norm_(
+                    grads, cfg.grad_clip, global_norm(grads, [sharded[i] for i in kept], groups.model))
+                state.optimizer.step()
+            state.step += 1
+            return state, {"loss": loss.detach(), "grad_norm": norm}
 
     return train_step
 

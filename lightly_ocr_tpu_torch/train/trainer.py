@@ -78,6 +78,7 @@ from lightly_ocr_tpu_torch.utils.metrics import (
     exact_match_accuracy,
     normalized_edit_distance,
 )
+from lightly_ocr_tpu_torch.utils.profiling import annotate
 
 DASHED = "-" * 80
 
@@ -254,7 +255,9 @@ class Trainer:
                                      f"process takes {self.per_rank} (build_loaders(cfg, rows=self.rows))")
                 batch = encode_batch(cfg, self.converter, images, labels, self.device)
                 self.state, metrics = self.train_step(self.state, batch)
-                avg_loss.add(metrics["loss"].item())
+                with annotate("train.sync"):  # the host waits for the step
+                    loss = metrics["loss"].item()
+                avg_loss.add(loss)
                 i += 1
 
                 if self.evaluates and i % cfg.val_interval == 0:

@@ -8,22 +8,39 @@
   ``cc_strip``, ``conv12_pool`` ...); ``all_threads`` records the
   operators of every host thread (a mesh's replica threads), not only the
   calling one's;
-* :func:`annotate`: a named span (``record_function``, and an NVTX range
-  on the card) so that pipeline stages show on the timeline;
+* :func:`annotate`: a named span (``record_function``) so that pipeline
+  stages show on the timeline; it records only while a profiler runs, and
+  costs one attribute read otherwise;
+* :func:`count` and :func:`counter_values`: named counters, always on, each
+  value stamped on ``time.perf_counter`` in a bounded buffer;
 * :class:`StageTimer`: named wall-clock totals with a synchronise of the
   device of each result, for per-stage breakdowns.
+
+The program's spans: ``ocr.dispatch`` (one group of ``run_images``),
+``ocr.prepare``, ``ocr.detector``, ``ocr.detector.prefix``, ``ocr.boxes``,
+``ocr.recognize``, ``crnn.features``, ``crnn.prediction``, ``ocr.decode``,
+``ocr.sync`` (one host sync each), ``seam_tail``, ``conv12_pool``;
+``loader.wait``, ``loader.batch``, ``loader.decode``, ``loader.collate``,
+``train.step``, ``train.forward``, ``train.backward``, ``train.optimizer``,
+``train.sync``.  Its counters: ``worker.queue_wait_s`` (one value a request)
+and ``worker.batch_size`` (one a batch).
 """
 from __future__ import annotations
 
 import contextlib
 import os
 import time
-from collections import defaultdict
+from collections import defaultdict, deque
 from typing import Iterator
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 TRACE_FILE = "trace.json"
+SYNC = "ocr.sync"  # the span around one host sync
+COUNTER_LEN = 1 << 16  # values kept a counter, the newest
+_OFF = contextlib.nullcontext()
+_counters: dict[str, deque] = {}
 
 
 @contextlib.contextmanager
@@ -64,19 +81,29 @@ def all_threads_supported() -> bool:
     return "profile_all_threads" in (_ExperimentalConfig.__init__.__doc__ or "")
 
 
-@contextlib.contextmanager
-def annotate(name: str) -> Iterator[None]:
-    """A named span on the profiler's timeline (and an NVTX range on the
-    card, for external CUDA tools)."""
-    nvtx = torch.cuda.is_available()
-    if nvtx:
-        torch.cuda.nvtx.range_push(name)
-    try:
-        with torch.profiler.record_function(name):
-            yield
-    finally:
-        if nvtx:
-            torch.cuda.nvtx.range_pop()
+def annotate(name: str):
+    """A named span on the profiler's timeline (``record_function``) while
+    a profiler runs, on any thread; otherwise a context that does nothing,
+    at the cost of one attribute read."""
+    if _autograd_profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return _OFF
+
+
+def count(name: str, value: float) -> None:
+    """Append ``value`` to the counter ``name``, stamped with
+    ``time.perf_counter()``; a counter keeps its newest ``COUNTER_LEN``
+    values."""
+    values = _counters.get(name)
+    if values is None:
+        values = _counters.setdefault(name, deque(maxlen=COUNTER_LEN))
+    values.append((time.perf_counter(), value))
+
+
+def counter_values(name: str, since: float = -float("inf"), until: float = float("inf")) -> list:
+    """The values of the counter ``name`` stamped in ``[since, until]``
+    (``perf_counter`` seconds), oldest first."""
+    return [v for t, v in list(_counters.get(name, ())) if since <= t <= until]
 
 
 def _sync(result) -> None:

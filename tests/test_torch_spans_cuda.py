@@ -1,0 +1,95 @@
+"""Every host sync of a greedy dispatch on the card sits in an ``ocr.sync``
+span.
+
+Marked ``cuda``; skips without a CUDA device.  Imports nothing of JAX, so
+it runs on the card's machine:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_spans_cuda.py
+
+A tiny bf16 ``tail,s2d`` BatchedOCR (kernels #5, #1 and the CC kernel on
+the card) serves four receipts under ``torch.cuda.set_sync_debug_mode(
+"warn")``, which warns at each synchronising call, while a CPU profiler
+runs so that the program's spans open: each warning must come while an
+``ocr.sync`` span is the innermost span open on its thread, and each such
+span must see exactly one.
+"""
+import threading
+import traceback
+import warnings
+
+import numpy as np
+import pytest
+import torch
+
+from lightly_ocr_tpu_torch.config import Config
+from lightly_ocr_tpu_torch.models.crnn import CRNNet
+from lightly_ocr_tpu_torch.models.layers import init_module
+from lightly_ocr_tpu_torch.models.vgg_unet import VGG_UNet
+from lightly_ocr_tpu_torch.serving.batch import BatchedOCR
+from lightly_ocr_tpu_torch.utils.profiling import SYNC, trace
+
+pytestmark = pytest.mark.cuda
+
+TINY = dict(prediction="Attention", transform="TPS", output_channel=64, hidden_size=32,
+            num_fiducial=8, max_boxes=4, character="abcdefghij", batch_max_len=8, attn_decode="greedy")
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def test_every_sync_of_a_greedy_dispatch_is_in_a_sync_span(cuda_device, monkeypatch, tmp_path):
+    cfg = Config(**TINY)
+    g = torch.Generator().manual_seed(0)
+    det = init_module(VGG_UNet(), g).state_dict()
+    rec = init_module(CRNNet(cfg), g).state_dict()
+    ocr = BatchedOCR(cfg, det, rec, boxes_per_image=8, dtype=torch.bfloat16, device=cuda_device)
+    rng = np.random.default_rng(0)
+    images = [(rng.random((200, 160, 3)) * 255).astype(np.uint8) for _ in range(4)]
+    ocr.run_images(images)  # builds the kernels and every shape
+    torch.cuda.synchronize()
+
+    local = threading.local()
+    spans, stray = [], []
+    real = torch.profiler.record_function
+
+    class Tracked:
+        def __init__(self, name):
+            self.name, self.inner = name, real(name)
+
+        def __enter__(self):
+            local.__dict__.setdefault("open", []).append([self.name, 0])
+            return self.inner.__enter__()
+
+        def __exit__(self, *exc):
+            spans.append(local.open.pop())
+            return self.inner.__exit__(*exc)
+
+    def on_warning(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" not in str(message):
+            return
+        open_ = getattr(local, "open", [])
+        if open_ and open_[-1][0] == SYNC:
+            open_[-1][1] += 1
+        else:
+            stray.append("".join(traceback.format_stack(limit=8)))
+
+    monkeypatch.setattr(torch.profiler, "record_function", Tracked)
+    mode = torch.cuda.get_sync_debug_mode()
+    with trace(str(tmp_path), cuda=False), warnings.catch_warnings():
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")  # a switch of the mode warns itself: not counted
+        warnings.showwarning = on_warning
+        try:
+            out = ocr.run_images(images)
+        finally:
+            warnings.showwarning = lambda *a, **kw: None
+            torch.cuda.set_sync_debug_mode(mode)
+    assert len(out) == len(images)
+    assert not stray, "syncs outside an ocr.sync span:\n" + "\n".join(stray)
+    syncs = [n for name, n in spans if name == SYNC]
+    print(f"{len(syncs)} host syncs in a greedy dispatch of {len(images)} receipts")
+    assert syncs and all(n == 1 for n in syncs), syncs
