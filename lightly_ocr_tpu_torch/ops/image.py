@@ -18,6 +18,7 @@
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple
 
@@ -32,19 +33,25 @@ IMAGENET_VAR = (0.229, 0.224, 0.225)
 LUMA = (0.299, 0.587, 0.114)  # ITU-R 601-2, PIL's "L" conversion
 
 
+@functools.lru_cache(maxsize=None)
+def _constants(device: torch.device) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``IMAGENET_MEAN``, ``IMAGENET_VAR`` and ``LUMA`` as float32 tensors
+    on ``device``, uploaded once a device: an upload from pageable memory
+    waits for the card's queued work.  Callers must not write to them."""
+    with annotate(SYNC):
+        return tuple(torch.tensor(c, dtype=torch.float32, device=device)
+                     for c in (IMAGENET_MEAN, IMAGENET_VAR, LUMA))
+
+
 def normalize_mean_variance(img: torch.Tensor) -> torch.Tensor:
     """[..., 3] uint8-range RGB -> normalized float32."""
-    with annotate(SYNC):  # a blocking copy to the card
-        mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=img.device)
-    with annotate(SYNC):
-        var = torch.tensor(IMAGENET_VAR, dtype=torch.float32, device=img.device)
+    mean, var, _ = _constants(img.device)
     return (img.float() - mean * 255.0) / (var * 255.0)
 
 
 def denormalize_mean_variance(img: torch.Tensor) -> torch.Tensor:
     """Inverse of :func:`normalize_mean_variance`, clipped to [0, 255]."""
-    mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=img.device)
-    var = torch.tensor(IMAGENET_VAR, dtype=torch.float32, device=img.device)
+    mean, var, _ = _constants(img.device)
     return ((img.float() * var + mean) * 255.0).clamp(0.0, 255.0)
 
 
@@ -137,8 +144,7 @@ def make_detector_input(img: torch.Tensor, plan: ResizePlan) -> torch.Tensor:
 
 def rgb_to_gray(img: torch.Tensor) -> torch.Tensor:
     """[..., 3] RGB -> [...] float32 luma (PIL ``L`` weights)."""
-    w = torch.tensor(LUMA, dtype=torch.float32, device=img.device)
-    return img.float() @ w
+    return img.float() @ _constants(img.device)[2]
 
 
 def resize_normalize(crops: torch.Tensor, height: int = 32, width: int = 100) -> torch.Tensor:

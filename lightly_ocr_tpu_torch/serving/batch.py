@@ -66,6 +66,7 @@ rows again, of which one copy is kept.
 """
 from __future__ import annotations
 
+import itertools
 import logging
 import os
 from concurrent.futures import ThreadPoolExecutor
@@ -82,11 +83,12 @@ from lightly_ocr_tpu_torch.ops.cc import label_components
 from lightly_ocr_tpu_torch.ops.crop import crop_resize_normalize_matmul
 from lightly_ocr_tpu_torch.ops.detection import get_det_boxes
 from lightly_ocr_tpu_torch.ops.image import (
-    LUMA,
-    make_detector_input,
+    normalize_mean_variance,
     pick_canvas_bucket,
     pick_gray_bucket,
     plan_aspect_resize,
+    resize_bilinear,
+    rgb_to_gray,
 )
 from lightly_ocr_tpu_torch.ops.rowpack import stem_conv_rowpacked, tail_scores_rowpacked
 from lightly_ocr_tpu_torch.ops.seam_tail import fused_tail_scores_cs_seam, tail_params
@@ -104,9 +106,8 @@ from lightly_ocr_tpu_torch.ops.stem import (
 )
 from lightly_ocr_tpu_torch.parallel.mesh import shard_batch
 from lightly_ocr_tpu_torch.text.converters import build_converter
-from lightly_ocr_tpu_torch.utils.profiling import SYNC, annotate
+from lightly_ocr_tpu_torch.utils.profiling import SYNC, annotate, count
 
-_LUMA = np.asarray(LUMA, np.float32)
 log = logging.getLogger(__name__)
 
 _OFF = ("", "none", "off", "0")
@@ -410,36 +411,60 @@ class BatchedOCR:
         return groups
 
     def prepare(self, images: list, cb, gb):
-        """One group's RGB uint8 images -> the arguments of :meth:`__call__`
-        on the device, padded to a power-of-two batch, and to a multiple of
+        """One group's RGB images -> the arguments of :meth:`__call__` on
+        the device, padded to a power-of-two batch, and to a multiple of
         the mesh's data axis (pad rows are blank canvases with a 1x1
-        extent, so they yield no valid box)."""
+        extent, so they yield no valid box).
+
+        The host copies the images top-left into one zero-padded ``[B, H,
+        W, 3]`` buffer (the group's largest extent; uint8, float32 where an
+        image is not uint8) and the ratios and extents into another, both
+        pinned for a card, and uploads each once without waiting for the
+        card.  The card takes the luma into the gray bucket, resizes each
+        run of consecutive images of one size in one call (the counter
+        ``ocr.prepare.resize_batch``), pastes onto the canvases and
+        normalizes them: the host never waits."""
         cfg, dev = self.cfg, self.device
         with annotate("ocr.prepare"):
-            B = 1 << (len(images) - 1).bit_length()
-            n = len(self.replicas)  # a mesh's data axis must divide the batch
-            B = -(-B // n) * n
-            canv = torch.zeros((B, *cb, 3), dtype=torch.float32, device=dev)
-            grays = np.zeros((B, *gb), np.float32)
-            inv_ratios = np.ones((B,), np.float32)
-            extents = np.ones((B, 2), np.float32)
-            for j, image in enumerate(images):
-                img = np.asarray(image, np.float32)
-                h, w = img.shape[:2]
+            n = len(images)
+            B = 1 << (n - 1).bit_length()
+            r = len(self.replicas)  # a mesh's data axis must divide the batch
+            B = -(-B // r) * r
+            images = [np.asarray(image) for image in images]
+            uint8 = all(image.dtype == np.uint8 for image in images)
+            pinned = dev.type == "cuda"
+            H = max(image.shape[0] for image in images)
+            W = max(image.shape[1] for image in images)
+            staged = torch.empty((B, H, W, 3), dtype=torch.uint8 if uint8 else torch.float32,
+                                 pin_memory=pinned)
+            meta = torch.ones(3 * B, dtype=torch.float32, pin_memory=pinned)
+            host, m = staged.numpy(), meta.numpy()
+            inv_ratios, extents = m[:B], m[B:].reshape(B, 2)
+            host[n:] = 0
+            runs = []  # (first, end, plan) of each run of one size
+            for (h, w), run in itertools.groupby(range(n), key=lambda j: images[j].shape[:2]):
+                run = list(run)
                 plan = plan_aspect_resize(h, w, cfg.canvas_size, cfg.magnify_ratio,
                                           canvas_bucket=cb)
-                # a blocking copy from pageable memory: the host waits for the card
-                with annotate(SYNC):
-                    x = torch.from_numpy(img).to(dev)
-                canv[j] = make_detector_input(x, plan)
-                grays[j, :h, :w] = img @ _LUMA
-                inv_ratios[j] = 1.0 / plan.ratio
-                extents[j] = (float(h), float(w))
-            args = [canv]
-            for a in (grays, inv_ratios, extents):
-                with annotate(SYNC):
-                    args.append(torch.from_numpy(a).to(dev))
-            return tuple(args)
+                for j in run:
+                    host[j, :h, :w] = images[j]
+                    host[j, h:] = 0
+                    host[j, :h, w:] = 0
+                inv_ratios[run] = 1.0 / plan.ratio
+                extents[run] = (h, w)
+                runs.append((run[0], run[-1] + 1, plan))
+            x = staged.to(dev, non_blocking=True)
+            meta = meta.to(dev, non_blocking=True)
+            gray = torch.zeros((B, *gb), dtype=torch.float32, device=dev)
+            gray[:, :H, :W] = rgb_to_gray(x)
+            canv = torch.zeros((B, *cb, 3), dtype=torch.float32, device=dev)
+            for a, b, plan in runs:
+                h, w = images[a].shape[:2]
+                th, tw = plan.target_h, plan.target_w
+                canv[a:b, :th, :tw] = resize_bilinear(x[a:b, :h, :w], th, tw)
+                count("ocr.prepare.resize_batch", b - a)
+            canv[:n] = normalize_mean_variance(canv[:n])
+            return canv, gray, meta[:B], meta[B:].view(B, 2)
 
     def run_images(self, images: list) -> list[list[dict]]:
         """RGB uint8 images of mixed sizes -> per image [{text, confidence,

@@ -22,8 +22,9 @@ The program's spans: ``ocr.dispatch`` (one group of ``run_images``),
 ``ocr.sync`` (one host sync each), ``seam_tail``, ``conv12_pool``;
 ``loader.wait``, ``loader.batch``, ``loader.decode``, ``loader.collate``,
 ``train.step``, ``train.forward``, ``train.backward``, ``train.optimizer``,
-``train.sync``.  Its counters: ``worker.queue_wait_s`` (one value a request)
-and ``worker.batch_size`` (one a batch).
+``train.sync``.  Its counters: ``worker.queue_wait_s`` (one value a request),
+``worker.batch_size`` (one a batch) and ``ocr.prepare.resize_batch`` (the
+images of each batched resize of ``BatchedOCR.prepare``).
 """
 from __future__ import annotations
 

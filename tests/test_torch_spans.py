@@ -84,10 +84,11 @@ def test_a_dispatch_opens_each_serving_span_nested(ocr, tmp_path):
                           ("ocr.recognize", "ocr.dispatch"), ("crnn.features", "ocr.recognize"),
                           ("crnn.prediction", "ocr.recognize"), ("ocr.decode", "ocr.dispatch")):
         assert len(within(evs, child, parent)) == len(spans(evs, child)) == 1, (child, parent)
-    # every sync inside a stage: each image's uploads in prep, the twelve
-    # masked indexings and the dummy rect in boxes, four copies in decode
+    # every sync inside a stage: none in prep (its uploads wait for
+    # nothing), the twelve masked indexings and the dummy rect in boxes,
+    # four copies in decode
     syncs = {stage: len(within(evs, SYNC, stage)) for stage in ("ocr.prepare", "ocr.boxes", "ocr.decode")}
-    assert syncs == {"ocr.prepare": 3 * len(images) + 3, "ocr.boxes": 13, "ocr.decode": 4}
+    assert syncs == {"ocr.prepare": 0, "ocr.boxes": 13, "ocr.decode": 4}
     assert sum(syncs.values()) == len(spans(evs, SYNC))
 
 
