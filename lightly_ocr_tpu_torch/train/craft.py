@@ -2,7 +2,8 @@
 
     python -m lightly_ocr_tpu_torch.train.craft [--records det.lor] \
         [--num-steps 200] [--batch 4] [--height 256] [--width 192] \
-        [--init-backbone vgg16_bn.pth] [--freeze slice1] [--device cuda]
+        [--max-words 8] [--init-backbone vgg16_bn.pth] [--freeze slice1] \
+        [--device cuda]
 
 As the JAX package:
 
@@ -29,6 +30,19 @@ As the JAX package:
   the reported ``grad_norm`` is the JAX package's, the norm of the raw
   gradients, frozen ones included.  Frozen BatchNorms still move their
   running statistics.
+* **Loop**: :func:`train_craft` is :func:`init_craft_state`,
+  :func:`make_craft_train_step`, :func:`craft_batches` (the batches from
+  the seed) and :func:`fit_craft` (upload, step, the losses kept on the
+  device and read back at the log points only).
+* **Spans** (:func:`~lightly_ocr_tpu_torch.utils.profiling.annotate`,
+  recorded only under a profiler), the training step's shared names where
+  the CRNN's step has the same phase: ``train.step`` around a step,
+  holding ``train.forward`` (the model call), ``craft.ohem`` (both
+  OHEM-MSEs), ``train.backward`` and ``train.optimizer``
+  (:func:`apply_craft_update`); in :func:`fit_craft`, ``craft.data``
+  (drawing a batch), ``craft.upload`` (:func:`batch_to`) and ``train.sync``
+  (each ``.item()`` at a log point).  Counter ``craft.upload_bytes``: the
+  host bytes of each step's batch.
 * **Checkpoints**: :mod:`lightly_ocr_tpu_torch.utils.checkpoint` (model,
   optimizer, step); ``load_variables_for_inference`` gives the state dict
   that ``engines.CRAFT(state_dict=...)`` and ``BatchedOCR`` load.
@@ -46,7 +60,8 @@ as the JAX ``train_craft(mesh=...)`` takes any mesh.
 from __future__ import annotations
 
 import argparse
-from typing import Callable, Mapping, Sequence
+import itertools
+from typing import Callable, Iterable, Iterator, Mapping, Sequence
 
 import numpy as np
 import torch
@@ -70,6 +85,7 @@ from lightly_ocr_tpu_torch.train.train_step import (
     global_norm,
     refuse_reduced_dtype_over_groups,
 )
+from lightly_ocr_tpu_torch.utils.profiling import annotate, count
 
 # ---------------------------------------------------------------------------
 # Synthetic data with exact gaussian supervision (numpy, as the JAX package)
@@ -162,6 +178,32 @@ def synthesize_batch(
     return {"images": images, "region": region, "affinity": affinity}
 
 
+def craft_batches(
+    rng: np.random.Generator,
+    batch: int,
+    height: int,
+    width: int,
+    records: str | None = None,
+    rows: slice | None = None,
+    max_words: int = 8,
+) -> Iterator[dict[str, np.ndarray]]:
+    """Endless host batches of ``batch`` rows drawn with ``rng``:
+    :func:`synthesize_batch` (``max_words`` words a canvas at most), or
+    from the detection record file ``records``
+    (:func:`~lightly_ocr_tpu_torch.train.pseudo_labels.batches_from_records`).
+    ``rows`` keeps that slice of each batch (one process's share of a
+    data-parallel run's global batch; every process draws the whole batch
+    to keep ``rng`` in step, and from ``records`` decodes only its rows)."""
+    if records is not None:
+        from lightly_ocr_tpu_torch.train.pseudo_labels import batches_from_records
+
+        yield from batches_from_records(records, batch, height, width, rng, rows=rows)
+        return
+    while True:
+        data = synthesize_batch(rng, batch, height, width, max_words)
+        yield data if rows is None else {k: v[rows] for k, v in data.items()}
+
+
 # ---------------------------------------------------------------------------
 # OHEM-MSE loss
 # ---------------------------------------------------------------------------
@@ -228,10 +270,12 @@ def craft_loss(model: VGG_UNet, batch: Mapping[str, torch.Tensor], group=None) -
     """OHEM-MSE of the region map plus that of the affinity map, on the
     float32 score maps of ``model`` (in whatever mode it is in); with
     ``group``, this process's share of the global batch's loss."""
-    maps, _ = model(batch["images"])
-    maps = maps.to(torch.promote_types(maps.dtype, torch.float32))
-    return (ohem_mse(maps[..., 0], batch["region"], group=group)
-            + ohem_mse(maps[..., 1], batch["affinity"], group=group))
+    with annotate("train.forward"):
+        maps, _ = model(batch["images"])
+        maps = maps.to(torch.promote_types(maps.dtype, torch.float32))
+    with annotate("craft.ohem"):
+        return (ohem_mse(maps[..., 0], batch["region"], group=group)
+                + ohem_mse(maps[..., 1], batch["affinity"], group=group))
 
 
 # ---------------------------------------------------------------------------
@@ -394,17 +438,58 @@ def make_craft_train_step(
     sync_batch_norm(model, data)
 
     def train_step(state: TrainState, batch: Mapping[str, torch.Tensor]):
-        model.train()
-        state.optimizer.zero_grad(set_to_none=True)
-        loss = craft_loss(model, batch, data)
-        loss.backward()
-        norm = apply_craft_update(state.optimizer, params, frozen, clip, groups, sharded)
-        if data is not None:
-            loss = global_sum(loss.detach(), data)
-        state.step += 1
-        return state, {"loss": loss.detach(), "grad_norm": norm}
+        with annotate("train.step"):
+            model.train()
+            state.optimizer.zero_grad(set_to_none=True)
+            loss = craft_loss(model, batch, data)
+            with annotate("train.backward"):
+                loss.backward()
+            with annotate("train.optimizer"):
+                norm = apply_craft_update(state.optimizer, params, frozen, clip, groups, sharded)
+            if data is not None:
+                loss = global_sum(loss.detach(), data)
+            state.step += 1
+            return state, {"loss": loss.detach(), "grad_norm": norm}
 
     return train_step
+
+
+def fit_craft(
+    state: TrainState,
+    step_fn: Callable,
+    batches: Iterable[Mapping[str, np.ndarray]],
+    device,
+    *,
+    log_every: int = 20,
+    log_fn: Callable[[str], None] = print,
+    num_steps: int | None = None,
+) -> list[torch.Tensor]:
+    """Train on ``batches`` (host batches shaped as :func:`synthesize_batch`'s;
+    at most ``num_steps`` of them where given): each uploaded with
+    :func:`batch_to`, stepped with ``step_fn`` (:func:`make_craft_train_step`).
+    Returns each step's loss, kept on the device; the loss and the gradient
+    norm are read back only every ``log_every`` steps (0: never), for the
+    line given to ``log_fn``."""
+    losses: list[torch.Tensor] = []
+    it = iter(batches)
+    of = "" if num_steps is None else f"/{num_steps}"
+    for i in itertools.count(1) if num_steps is None else range(1, num_steps + 1):
+        with annotate("craft.data"):
+            data = next(it, None)
+        if data is None:
+            break
+        with annotate("craft.upload"):
+            batch = batch_to(data, device)
+        count("craft.upload_bytes", sum(t.numel() * t.element_size() for t in batch.values()))
+        state, metrics = step_fn(state, batch)
+        losses.append(metrics["loss"])
+        if log_every and i % log_every == 0:
+            with annotate("train.sync"):
+                loss = losses[-1].item()
+            with annotate("train.sync"):
+                norm = metrics["grad_norm"].item()
+            log_fn(f"craft step {i}{of} loss {loss:.5f} gnorm {norm:.3f}")
+    return losses
 
 
 def train_craft(
@@ -422,12 +507,15 @@ def train_craft(
     init_backbone=None,
     freeze: Sequence[str] = (),
     group=None,
+    max_words: int = 8,
 ) -> tuple[VGG_UNet, TrainState, list[float]]:
     """Detector training on synthetic data, or on a detection record file
     (``records``: word rects + transcripts, split into character gaussians
     by :mod:`.pseudo_labels`).  The batches come from
-    ``np.random.default_rng(seed)`` as in the JAX package.  The losses are
-    read from the device only at the log points and at the end.
+    ``np.random.default_rng(seed)`` as in the JAX package
+    (:func:`craft_batches`; ``max_words`` words a synthetic canvas at
+    most), through :func:`fit_craft`.  The losses are read from the device
+    only at the log points and at the end.
 
     ``group`` (a ``torch.distributed`` process group, one process per
     device; :func:`main`'s ``--data-parallel``) trains data-parallel: every
@@ -448,25 +536,10 @@ def train_craft(
     per = batch // n
     if per * n != batch:
         raise ValueError(f"batch {batch} does not split over {n} processes")
-    lead = groups.lead
-    data_iter = None
-    if records is not None:
-        from lightly_ocr_tpu_torch.train.pseudo_labels import batches_from_records
-
-        data_iter = batches_from_records(records, batch, height, width, rng,
-                                         rows=slice(rank * per, (rank + 1) * per))
-    losses: list[torch.Tensor] = []
-    for i in range(num_steps):
-        if data_iter is not None:
-            data = next(data_iter)
-        else:
-            data = synthesize_batch(rng, batch, height, width)
-            data = {k: v[rank * per:(rank + 1) * per] for k, v in data.items()}
-        state, metrics = step_fn(state, batch_to(data, dev))
-        losses.append(metrics["loss"])
-        if lead and log_every and (i + 1) % log_every == 0:
-            log_fn(f"craft step {i + 1}/{num_steps} loss {losses[-1].item():.5f} "
-                   f"gnorm {metrics['grad_norm'].item():.3f}")
+    batches = craft_batches(rng, batch, height, width, records, slice(rank * per, (rank + 1) * per),
+                            max_words)
+    losses = fit_craft(state, step_fn, batches, dev, log_every=log_every if groups.lead else 0,
+                       log_fn=log_fn, num_steps=num_steps)
     if checkpoint_dir and rank == 0:  # the model group of data index 0
         from lightly_ocr_tpu_torch.utils.checkpoint import save_checkpoint
 
@@ -495,6 +568,8 @@ def main(argv: Sequence[str] | None = None) -> int:
     p.add_argument("--freeze", default="",
                    help="comma list of basenet slices to freeze, e.g. 'slice1' "
                         "(reference vgg_bn.py:57-60)")
+    p.add_argument("--max-words", type=int, default=8,
+                   help="most words a synthetic canvas holds (at least 3)")
     p.add_argument("--log-every", type=int, default=20)
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; the CPU only when asked)")
@@ -502,7 +577,7 @@ def main(argv: Sequence[str] | None = None) -> int:
     dev = resolve_device(args.device)
     kw = dict(num_steps=args.num_steps, batch=args.batch, height=args.height, width=args.width,
               lr=args.lr, seed=args.seed, log_every=args.log_every,
-              checkpoint_dir=args.checkpoint_dir, records=args.records,
+              checkpoint_dir=args.checkpoint_dir, records=args.records, max_words=args.max_words,
               init_backbone=args.init_backbone,
               freeze=tuple(t for t in args.freeze.split(",") if t))
     if launched_by_torchrun():

@@ -22,9 +22,13 @@ The program's spans: ``ocr.dispatch`` (one group of ``run_images``),
 ``ocr.sync`` (one host sync each), ``seam_tail``, ``conv12_pool``;
 ``loader.wait``, ``loader.batch``, ``loader.decode``, ``loader.collate``,
 ``train.step``, ``train.forward``, ``train.backward``, ``train.optimizer``,
-``train.sync``.  Its counters: ``worker.queue_wait_s`` (one value a request),
-``worker.batch_size`` (one a batch) and ``ocr.prepare.resize_batch`` (the
-images of each batched resize of ``BatchedOCR.prepare``).
+``train.sync`` (the CRNN's step and ``Trainer.fit``, and the CRAFT step
+and ``fit_craft`` of ``train/craft.py``); ``craft.ohem``, ``craft.data``,
+``craft.upload`` (``train/craft.py``).  Its counters: ``worker.queue_wait_s``
+(one value a request), ``worker.batch_size`` (one a batch),
+``ocr.prepare.resize_batch`` (the images of each batched resize of
+``BatchedOCR.prepare``) and ``craft.upload_bytes`` (the host bytes of each
+CRAFT training step's batch).
 """
 from __future__ import annotations
 
